@@ -1,10 +1,11 @@
 """End-to-end production throughput: pipeline.align on the bench corpus.
 
-bench.py measures the device-resident serving kernel; this measures what a
-user gets from `pipeline.align` — guide mapping (host k-mer index + chain +
-device Viterbi), chaining, banded FB + MEA decode, host traceback, and
-cigar splicing + SAM writing — on the same corpus shape (reads ~3.5 kb vs
-a 3.5 kb reference, band 21).
+bench.py measures the device-resident forward-backward; this measures what
+a user gets from the marginAlign stages — guide mapping (host k-mer index +
+chain + device Viterbi and traceback), chaining, banded FB + MEA decode and
+traceback, and cigar splicing + SAM writing — on the same corpus shape
+(reads ~3.5 kb vs a 3.5 kb reference, band 21).  make_corpus is also the
+corpus chip_smoke.py runs.
 
 Two passes: the first pays XLA compiles (shapes are ladder-quantized so
 they cache), the second is the steady-state number.  Prints one JSON line
@@ -12,6 +13,7 @@ per pass with total reads/s and per-stage seconds.
 
     python benchmarks/e2e.py            # N=1024 reads
     E2E_READS=256 python benchmarks/e2e.py
+    JAX_PLATFORMS=cpu E2E_READS=8 E2E_READ_LEN=300 python benchmarks/e2e.py
 """
 import json
 import os
@@ -95,13 +97,11 @@ def run_pass(fq, ref, tmpdir, tag):
 
 
 def main():
-    plat = os.environ.get("MARGINALIGN_PLATFORM")
-    if plat:
-        import jax
+    from marginalign_trna_tpu.utils.compile_cache import (
+        configure_compile_cache,
+    )
 
-        jax.config.update(
-            "jax_platforms", "cpu" if plat == "cpu" else plat
-        )
+    configure_compile_cache()
     n_reads = int(os.environ.get("E2E_READS", "1024"))
     read_len = int(os.environ.get("E2E_READ_LEN", "3500"))
     with tempfile.TemporaryDirectory() as tmpdir:

@@ -4,10 +4,10 @@ The reference accumulates {(refName, refPos) -> {base -> sum of posterior
 probs}} dicts per chunk and merges pickles (marginCallerLib.py:60-74,
 179-187).  Our equivalent output is a dense [total_ref_len, 4] tensor, but
 scattering ~1e8 posterior band cells into it with host np.add.at costs tens
-of seconds per batch — 100x the FB kernel itself.
+of seconds per batch.
 
-TPU-native formulation: a banded monotone segment-sum.  For band row k of
-lane b, cell (d, k) targets global reference position
+Device formulation: a banded monotone segment-sum.  For band row k of
+lane b, cell (d, k) targets reference position
 
     g(d, k) = gu(d) - k - 1,     gu(d) = ref_offset + d - lo(d),
 
@@ -16,18 +16,19 @@ diagonal).  Hence for fixed (k, b) every target position g collects a
 *contiguous run* of diagonals, and the whole scatter becomes, per base
 code:
 
-    cumsum along d  ->  two gathers per band row at host-precomputed run
+    prefix sums along d  ->  gathers per band row at host-precomputed run
     boundaries E1[v] = #{d : gu(d) <= v}  ->  differences, summed over k
-    and lanes.
+    (two-level prefixes, so only small numbers are ever differenced).
 
-Everything on device is a parallel XLA op (cumsum / gather / slice); there
-is no scatter and nothing sequential per diagonal.  The E1 boundary table
-is cheap host numpy (one searchsorted per lane).
+Each lane sums over its own window (ref_offset 0), so the device result is
+[4, max n, lanes]; the host adds the lane windows into the reference with
+one bincount per base.  There is no scatter on device and nothing
+sequential per diagonal.
 """
 from __future__ import annotations
 
 from functools import partial
-from typing import Optional, Tuple
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -40,9 +41,53 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+PREFIX_BLOCK = 64  # diagonals per block of the two-level prefix sums
+
+
+def prefix_tables(w):
+    """Two-level exclusive prefix sums of w [D1, Wp, B] along d, for
+    run_sums: L [nblk * PREFIX_BLOCK, Wp, B] within-block prefixes, T
+    [nblk, Wp, B] block totals, Bp [nblk + 1, Wp, B] block prefixes, with
+    nblk * PREFIX_BLOCK > D1 so every boundary 0..D1 has an entry.
+
+    A plain cumsum reaches ~1e3 along a band row at 3.5 kb, where one f32
+    ulp is ~1e-4, and differencing two such prefixes loses the short
+    runs' sums to that rounding (and to the backend's summation order).
+    Here a run inside one block differences within-block prefixes, and a
+    run crossing one block edge adds that block's total: small numbers
+    only, whatever the read length."""
+    D1, Wp, B = w.shape
+    nblk = D1 // PREFIX_BLOCK + 1
+    w = jnp.pad(w, [(0, nblk * PREFIX_BLOCK - D1), (0, 0), (0, 0)])
+    inc = jnp.cumsum(w.reshape(nblk, PREFIX_BLOCK, Wp, B), axis=1)
+    L = jnp.concatenate(
+        [jnp.zeros((nblk, 1, Wp, B), w.dtype), inc[:, :-1]], axis=1
+    ).reshape(nblk * PREFIX_BLOCK, Wp, B)
+    T = inc[:, -1]
+    Bp = jnp.concatenate(
+        [jnp.zeros((1, Wp, B), w.dtype), jnp.cumsum(T, axis=0)], axis=0
+    )
+    return L, T, Bp
+
+
+def run_sums(tables, kk: int, bounds):
+    """[V-1, B] sums of w[:, kk, :] over the runs [bounds[v], bounds[v+1])
+    (bounds [V, B] non-decreasing in v, values in [0, D1])."""
+    L, T, Bp = (t[:, kk, :] for t in tables)
+    blk = bounds // PREFIX_BLOCK
+    lx = jnp.take_along_axis(L, bounds, axis=0)
+    bp = jnp.take_along_axis(Bp, blk, axis=0)
+    bp1 = jnp.take_along_axis(Bp, blk + 1, axis=0)
+    tot = jnp.take_along_axis(T, blk, axis=0)
+    cross = jnp.where(blk[1:] == blk[:-1], 0.0,
+                      tot[:-1] + (bp[1:] - bp1[:-1]))
+    return cross + (lx[1:] - lx[:-1])
+
+
 @partial(jax.jit, static_argnames=("width", "rg"))
 def _expectations_device(post, valid, yb, lo, e1, width: int, rg: int):
-    """[rg, 4] expected base counts from a posterior band.
+    """[4, rg, B] per-lane expected base counts over positions
+    v in [0, rg) of each lane's window (see run_boundaries).
 
     post  [D1, Wp, B] f32   match posteriors
     valid [D1, Wp, B] bool
@@ -61,21 +106,13 @@ def _expectations_device(post, valid, yb, lo, e1, width: int, rg: int):
     ok = valid & (i >= 1) & (j >= 1)
 
     def per_code(c):
-        wc = jnp.where(ok & (yb == c), post, 0.0)
-        sp = jnp.concatenate(
-            [jnp.zeros((1, Wp, B), post.dtype), jnp.cumsum(wc, axis=0)],
-            axis=0,
-        )  # [D1+1, Wp, B]
+        tables = prefix_tables(jnp.where(ok & (yb == c), post, 0.0))
         acc = jnp.zeros((rg, B), post.dtype)
         for kk in range(width):
-            gk = jnp.take_along_axis(
-                sp[:, kk, :], e1[kk : kk + rg + 1, :], axis=0
-            )  # [rg+1, B]: run-boundary prefix sums for this band row
-            acc = acc + (gk[1:] - gk[:-1])
-        return acc.sum(axis=1)
+            acc = acc + run_sums(tables, kk, e1[kk : kk + rg + 1, :])
+        return acc
 
-    out = jax.lax.map(per_code, jnp.arange(4, dtype=jnp.int8))  # [4, rg]
-    return out.T
+    return jax.lax.map(per_code, jnp.arange(4, dtype=jnp.int8))
 
 
 def run_boundaries(
@@ -83,7 +120,8 @@ def run_boundaries(
 ) -> np.ndarray:
     """E1[v, b] = #{d : gu(d, b) <= v} for v in [0, rg + width], int32.
 
-    ref_offsets[b] is the global start of lane b's reference window; lanes
+    ref_offsets[b] is the start of lane b's reference window in the
+    position space (0: positions are the lane's own ref indices); lanes
     >= n_real are padding and get all-zero boundaries (no contribution).
     """
     D1 = batch.num_steps
@@ -98,37 +136,61 @@ def run_boundaries(
     return e1
 
 
+def lane_expectations(post, batch: BandedBatch, n_real: Optional[int] = None,
+                      dev=None):
+    """Device array [4, rg, B]: each lane's expected base counts at its
+    own reference positions 0..n-1 (rg = max n rounded up to 128), computed
+    where post lives.  Memory is O(max n x lanes), independent of the
+    reference length.  dev: the batch's DeviceBatch when it is already on
+    the device (its valid/yb bands are reused)."""
+    n_real = batch.batch if n_real is None else n_real
+    rg = _round_up(max(int(batch.n.max()), 1), 128)  # quantized for reuse
+    e1 = run_boundaries(batch, np.zeros(batch.batch, np.int64), rg, n_real)
+    return _expectations_device(
+        post,
+        batch.valid if dev is None else dev.valid,
+        batch.yb if dev is None else dev.yb,
+        batch.lo,
+        e1,
+        width=batch.width,
+        rg=rg,
+    )
+
+
+def add_lane_expectations(
+    exp: np.ndarray, local, batch: BandedBatch, ref_offsets: np.ndarray,
+    n_real: Optional[int] = None,
+) -> np.ndarray:
+    """Add lane_expectations output into exp [total_ref_len, 4] (in place)
+    at each lane's reference offset.  A host bincount in lane order: the
+    sum is deterministic, whatever device or device count made `local`."""
+    n_real = batch.batch if n_real is None else n_real
+    local = np.asarray(local)[:, :, :n_real]
+    rg = local.shape[1]
+    v = np.arange(rg, dtype=np.int64)[:, None]
+    inside = v < batch.n[None, :n_real]
+    idx = (np.asarray(ref_offsets[:n_real], np.int64)[None, :] + v)[inside]
+    for c in range(4):
+        exp[:, c] += np.bincount(
+            idx, weights=local[c][inside], minlength=exp.shape[0]
+        )[: exp.shape[0]]
+    return exp
+
+
 def band_expectations(
     post,
     batch: BandedBatch,
     ref_offsets: np.ndarray,
     total_ref_len: int,
     n_real: Optional[int] = None,
-    as_device: bool = False,
 ) -> np.ndarray:
-    """[total_ref_len, 4] expected base counts for one posterior batch.
-
-    post may be a device array (preferred: avoids transferring the
-    multi-GB band to the host) or numpy.  as_device=True skips the host
-    sync and returns the (quantized-length [rg, 4]) device array, letting
-    callers pipeline several buckets before materialising; slice to
-    total_ref_len after conversion.
-    """
-    n_real = batch.batch if n_real is None else n_real
-    rg = _round_up(max(total_ref_len, 1), 512)  # quantized for jit reuse
-    e1 = run_boundaries(batch, ref_offsets, rg, n_real)
-    out = _expectations_device(
-        jnp.asarray(post),
-        jnp.asarray(batch.valid),
-        jnp.asarray(batch.yb),
-        jnp.asarray(batch.lo),
-        jnp.asarray(e1),
-        width=batch.width,
-        rg=rg,
+    """[total_ref_len, 4] expected base counts for one posterior batch
+    (lane b's reference window starts at ref_offsets[b])."""
+    exp = np.zeros((total_ref_len, 4))
+    return add_lane_expectations(
+        exp, lane_expectations(post, batch, n_real), batch, ref_offsets,
+        n_real,
     )
-    if as_device:
-        return out
-    return np.asarray(out)[:total_ref_len]
 
 
 def read_position_boundaries(
@@ -156,7 +218,7 @@ def band_expectations_host(
     n_real: Optional[int] = None,
 ) -> np.ndarray:
     """Host-loop oracle for band_expectations (the original np.add.at
-    implementation, kept for tests and as a CPU fallback)."""
+    implementation, kept for tests)."""
     n_real = batch.batch if n_real is None else n_real
     exp = np.zeros((total_ref_len, 4))
     post = np.asarray(post)
@@ -174,687 +236,3 @@ def band_expectations_host(
         ref_pos = ref_offsets[b] + j_idx[ok][keep] - 1
         np.add.at(exp, (ref_pos, codes[keep]), p[keep])
     return exp
-
-
-# --------------------- fused-kernel assembly (cx serving) -----------------
-#
-# The cx kernel (fb_pallas._make_fwd_kernel_circ_cx) streams each
-# completed reference position's 4-code expectation totals out at its
-# flush diagonal and leaves the last window's positions in accumulator
-# tails.  Assembly into [total_ref_len, 4] is then one gather per code
-# from the flushed stream plus one from the tail — no cumsums, no band
-# re-read.
-
-
-def fused_expectation_indices(
-    batch: BandedBatch,
-    ref_offsets: np.ndarray,
-    rg: int,
-    n_real: int,
-    d1k: int,
-) -> Tuple[np.ndarray, np.ndarray]:
-    """(df, ti) [rg, B] int32 gather indices for _fused_assemble.
-
-    For global position v on lane b (local j = v - off + 1 in [1, n]):
-    its completed total was flushed at the first diagonal d with
-    gu(d) = d - lo(d) = j + width (df), or — if gu never reaches that —
-    it sits in the tail accumulator at row (d1k - 1 - j) mod Wp (ti).
-    Out-of-window/padding entries point at the appended zero slots
-    (df = d1k, ti = Wp)."""
-    D1, B = batch.lo.shape
-    W = batch.width
-    Wp = batch.wp
-    df = np.full((rg, B), d1k, dtype=np.int32)
-    ti = np.full((rg, B), Wp, dtype=np.int32)
-    base = np.arange(d1k, dtype=np.int64)
-    vs = np.arange(rg, dtype=np.int64)
-    for b in range(n_real):
-        lo_b = batch.lo[:, b].astype(np.int64)
-        if d1k > D1:
-            lo_b = np.concatenate(
-                [lo_b, np.full(d1k - D1, lo_b[-1], np.int64)]
-            )
-        gu = base - lo_b
-        n = int(batch.n[b])
-        j = vs - int(ref_offsets[b]) + 1
-        inside = (j >= 1) & (j <= n)
-        e = np.searchsorted(gu, j + W, side="left")
-        e_cl = np.minimum(e, d1k - 1)
-        flushed = inside & (e < d1k) & (gu[e_cl] == j + W)
-        df[:, b] = np.where(flushed, e_cl, d1k)
-        in_tail = inside & ~flushed
-        ti[:, b] = np.where(in_tail, (d1k - 1 - j) % Wp, Wp)
-    return df, ti
-
-
-def fused_row_indices(
-    batch: BandedBatch, rgm: int, n_real: int, d1k: int
-) -> Tuple[np.ndarray, np.ndarray]:
-    """(dfr, tir) [rgm, B] int32 gather indices for the ROW-sum flush
-    stream of the mw kernel (fb_pallas._make_fwd_kernel_circ_mw).
-
-    Read position i (1-based local; index v = i - 1) flushes at the
-    first diagonal d with lo(d) = i + 1 (the band moved past it), else
-    it sits in the row-accumulator tail at its fixed circular row
-    i mod Wp.  Sentinels point at appended zero slots."""
-    D1, B = batch.lo.shape
-    Wp = batch.wp
-    dfr = np.full((rgm, B), d1k, dtype=np.int32)
-    tir = np.full((rgm, B), Wp, dtype=np.int32)
-    iv = np.arange(1, rgm + 1, dtype=np.int64)
-    for b in range(n_real):
-        lo_b = batch.lo[:, b].astype(np.int64)
-        if d1k > D1:
-            lo_b = np.concatenate(
-                [lo_b, np.full(d1k - D1, lo_b[-1], np.int64)]
-            )
-        m = int(batch.m[b])
-        inside = iv <= m
-        e = np.searchsorted(lo_b, iv + 1, side="left")
-        e_cl = np.minimum(e, d1k - 1)
-        flushed = inside & (e < d1k) & (lo_b[e_cl] == iv + 1)
-        dfr[:, b] = np.where(flushed, e_cl, d1k)
-        in_tail = inside & ~flushed
-        tir[:, b] = np.where(in_tail, iv % Wp, Wp)
-    return dfr, tir
-
-
-def _lo_padded(batch: BandedBatch, b: int, d1k: int) -> np.ndarray:
-    lo_b = batch.lo[:, b].astype(np.int64)
-    D1 = len(lo_b)
-    if d1k > D1:
-        lo_b = np.concatenate(
-            [lo_b, np.full(d1k - D1, lo_b[-1], np.int64)]
-        )
-    return lo_b
-
-
-def fused_flush_jmaps(
-    batch: BandedBatch, ref_offsets: np.ndarray, n_real: int, d1k: int
-) -> Tuple[np.ndarray, np.ndarray]:
-    """(jmap [d1k, B], jmap_tail [Wp, B]) int32 GLOBAL-position targets
-    for the cx/mw kernels' column flush streams + tails, for the
-    bucket-scatter assembly (ops/bucket_scatter.py): jmap[d, b] is the
-    reference position completed at diagonal d (-1 if none), jmap_tail
-    the position held at each tail accumulator row."""
-    D1, B = batch.lo.shape
-    W = batch.width
-    Wp = batch.wp
-    jmap = np.full((d1k, B), -1, dtype=np.int32)
-    jtail = np.full((Wp, B), -1, dtype=np.int32)
-    base = np.arange(d1k, dtype=np.int64)
-    for b in range(n_real):
-        lo_b = _lo_padded(batch, b, d1k)
-        gu = base - lo_b
-        n = int(batch.n[b])
-        off = int(ref_offsets[b])
-        stepped = np.zeros(d1k, dtype=bool)
-        stepped[1:] = lo_b[1:] == lo_b[:-1]
-        j = gu - W  # completed local position (1-based) where stepped
-        okj = stepped & (j >= 1) & (j <= n)
-        jmap[okj, b] = (off + j[okj] - 1).astype(np.int32)
-        # Tail: positions still inside the final window.
-        gu_end = int(gu[-1])
-        lo_t = max(1, gu_end - W + 1)
-        hi_t = min(n, gu_end)
-        if hi_t >= lo_t:
-            js = np.arange(lo_t, hi_t + 1, dtype=np.int64)
-            rows = (d1k - 1 - js) % Wp
-            jtail[rows, b] = (off + js - 1).astype(np.int32)
-    return jmap, jtail
-
-
-def fused_row_jmaps(
-    batch: BandedBatch, n_real: int, d1k: int
-) -> Tuple[np.ndarray, np.ndarray]:
-    """(jmap [d1k, B], jmap_tail [Wp, B]) int32 LOCAL read-position
-    targets (0-based, i.e. accr row i-1) for the mw kernel's row flush
-    stream + row tails."""
-    D1, B = batch.lo.shape
-    Wp = batch.wp
-    jmap = np.full((d1k, B), -1, dtype=np.int32)
-    jtail = np.full((Wp, B), -1, dtype=np.int32)
-    for b in range(n_real):
-        lo_b = _lo_padded(batch, b, d1k)
-        m = int(batch.m[b])
-        stepped = np.zeros(d1k, dtype=bool)
-        stepped[1:] = lo_b[1:] != lo_b[:-1]
-        i = lo_b - 1  # completed read position where stepped
-        oki = stepped & (i >= 1) & (i <= m)
-        jmap[oki, b] = (i[oki] - 1).astype(np.int32)
-        lo_end = int(lo_b[-1])
-        # Unflushed read positions: [lo_end, m] (length <= width < Wp).
-        is_ = np.arange(max(1, lo_end), m + 1, dtype=np.int64)
-        assert len(is_) < Wp, (len(is_), Wp)
-        if len(is_):
-            rows = is_ % Wp
-            jtail[rows, b] = (is_ - 1).astype(np.int32)
-    return jmap, jtail
-
-
-@partial(jax.jit, static_argnames=("width", "Wp", "d1k"))
-def _fused_flush_jmaps_jit(lo, off, n, width: int, Wp: int, d1k: int):
-    lo = lo.astype(jnp.int32)
-    off = off.astype(jnp.int32)[None, :]
-    n = n.astype(jnp.int32)[None, :]
-    D1, B = lo.shape
-    if d1k > D1:
-        lo = jnp.concatenate(
-            [lo, jnp.broadcast_to(lo[-1:], (d1k - D1, B))], axis=0
-        )
-    d = jax.lax.broadcasted_iota(jnp.int32, (d1k, B), 0)
-    gu = d - lo
-    stepped = jnp.concatenate(
-        [jnp.zeros((1, B), bool), lo[1:] == lo[:-1]], axis=0
-    )
-    j = gu - width
-    okj = stepped & (j >= 1) & (j <= n)
-    jmap = jnp.where(okj, off + j - 1, -1)
-
-    gu_end = gu[-1:]                       # [1, B]
-    lo_t = jnp.maximum(1, gu_end - width + 1)
-    hi_t = jnp.minimum(n, gu_end)
-    r = jax.lax.broadcasted_iota(jnp.int32, (Wp, B), 0)
-    j_r = lo_t + jnp.remainder(d1k - 1 - r - lo_t, Wp)
-    jtail = jnp.where(
-        (j_r >= lo_t) & (j_r <= hi_t), off + j_r - 1, -1
-    )
-    return jmap.astype(jnp.int32), jtail.astype(jnp.int32)
-
-
-def fused_flush_jmaps_device(lo_dev, off_dev, n_dev, width: int,
-                             Wp: int, d1k: int):
-    """Device twin of fused_flush_jmaps: the combined [d1kp + Wp, B]
-    int32 target stream (jmap rows group-padded, then tail rows),
-    derived on device from the lo stream + per-lane scalars — replacing
-    a ~190ms host np.concatenate + ~100ms upload per bucket.  Module-
-    level jit: a fresh closure per call would retrace every bucket."""
-    jmap, jtail = _fused_flush_jmaps_jit(
-        lo_dev, off_dev, n_dev, width, Wp, d1k
-    )
-    return _concat_group_aligned_jmaps(jmap, jtail)
-
-
-@partial(jax.jit, static_argnames=("Wp", "d1k"))
-def _fused_row_jmaps_jit(lo, m, Wp: int, d1k: int):
-    lo = lo.astype(jnp.int32)
-    m = m.astype(jnp.int32)[None, :]
-    D1, B = lo.shape
-    if d1k > D1:
-        lo = jnp.concatenate(
-            [lo, jnp.broadcast_to(lo[-1:], (d1k - D1, B))], axis=0
-        )
-    stepped = jnp.concatenate(
-        [jnp.zeros((1, B), bool), lo[1:] != lo[:-1]], axis=0
-    )
-    i = lo - 1
-    oki = stepped & (i >= 1) & (i <= m)
-    jmap = jnp.where(oki, i - 1, -1)
-
-    lo_end = lo[-1:]
-    s = jnp.maximum(1, lo_end)
-    r = jax.lax.broadcasted_iota(jnp.int32, (Wp, B), 0)
-    i_r = s + jnp.remainder(r - s, Wp)
-    jtail = jnp.where((i_r >= s) & (i_r <= m), i_r - 1, -1)
-    return jmap.astype(jnp.int32), jtail.astype(jnp.int32)
-
-
-def fused_row_jmaps_device(lo_dev, m_dev, Wp: int, d1k: int):
-    """Device twin of fused_row_jmaps: combined [d1kp + Wp, B] int32
-    LOCAL read-position targets for the mw row flush stream + tails
-    (jmap section group-padded; see _concat_group_aligned_jmaps)."""
-    jmap, jtail = _fused_row_jmaps_jit(lo_dev, m_dev, Wp, d1k)
-    return _concat_group_aligned_jmaps(jmap, jtail)
-
-
-def _concat_group_aligned_jmaps(jmap, jtail):
-    """Concatenate flush-target rows and tail-target rows with the jmap
-    section padded to a GROUP (128) multiple.  The bucket-scatter
-    residue stage requires targets within any aligned 128-row group to
-    occupy distinct residues mod 128; a group straddling the jmap|jtail
-    boundary could otherwise mix a long terminal flush run with the
-    width-wide tail spread and collide (silently merging two
-    positions).  Group-aligning the seam removes the hazard."""
-    from .bucket_scatter import GROUP
-
-    d1k, B = jmap.shape
-    pad = _round_up(d1k, GROUP) - d1k
-    if pad:
-        jmap = jnp.concatenate(
-            [jmap, jnp.full((pad, B), -1, jmap.dtype)], axis=0
-        )
-    return jnp.concatenate([jmap, jtail], axis=0)
-
-
-def _concat_group_aligned_vals(fl, tails):
-    """Value-side twin of _concat_group_aligned_jmaps: zero rows pad the
-    flushed stream to the GROUP multiple before the tails append.
-    fl [C, d1k, B], tails [C, Wp, B]."""
-    from .bucket_scatter import GROUP
-
-    C, d1k, B = fl.shape
-    pad = _round_up(d1k, GROUP) - d1k
-    if pad:
-        fl = jnp.concatenate(
-            [fl, jnp.zeros((C, pad, B), fl.dtype)], axis=1
-        )
-    return jnp.concatenate([fl, tails], axis=1)
-
-
-def _scatter_assemble_dev(fl, tails, jm_dev, rg):
-    """[C, rg, B] scatter assembly from a DEVICE-derived combined target
-    stream (no host range check — the device derivations are in-range
-    by construction)."""
-    from .bucket_scatter import bucket_scatter_chunked, pad_group_rows
-
-    vals = _concat_group_aligned_vals(fl, tails)
-    vals, jmd = pad_group_rows(vals, jm_dev)
-    return bucket_scatter_chunked(vals, jmd, rg)
-
-
-# bucket_scatter_lanesum holds its [rg, C] output VMEM-resident and
-# statically unrolls rg/128 merge blocks; beyond this many positions the
-# chunked per-lane kernel + lane reduction stays bounded instead.
-_LANESUM_MAX_RG = 65536
-
-
-def _scatter_assemble_lanesum_dev(fl, tails, jm_dev, rg):
-    """[rg, C] lane-summed scatter assembly from a device-derived
-    combined target stream."""
-    from .bucket_scatter import bucket_scatter_lanesum, pad_group_rows
-
-    vals = _concat_group_aligned_vals(fl, tails)
-    vals, jmd = pad_group_rows(vals, jm_dev)
-    if _round_up(rg, 128) > _LANESUM_MAX_RG:
-        from .bucket_scatter import bucket_scatter_chunked
-
-        return _sum_lanes_t(bucket_scatter_chunked(vals, jmd, rg))[:rg]
-    return bucket_scatter_lanesum(vals, jmd, rg)
-
-
-def _use_scatter_assembly() -> bool:
-    """Bucket-scatter assembly (no gathers) vs take_along_axis.  Per-lane
-    gathers scalarise on TPU (~150ms per [4096, B]; gather_probe.py), so
-    scatter is the default; MARGINALIGN_ASSEMBLY=gather restores the
-    gather path (also the automatic fallback when a batch violates the
-    bucket kernel's group-spread precondition)."""
-    import os as _os
-
-    return _os.environ.get(
-        "MARGINALIGN_ASSEMBLY", ""
-    ).lower() != "gather"
-
-
-def _scatter_assemble(fl, tails, jmap, jtail, rg):
-    """[C, rg, B] via the bucket-scatter kernel, or None when the batch
-    violates its preconditions (caller falls back to gathers).  The
-    jmap section is padded to a GROUP multiple before the tails append
-    so flush and tail targets never share a residue group (see
-    _concat_group_aligned_jmaps)."""
-    from .bucket_scatter import (
-        GROUP, bucket_scatter_chunked, group_spread_ok, pad_group_rows,
-    )
-
-    d1k, B = jmap.shape
-    pad = _round_up(d1k, GROUP) - d1k
-    if pad:
-        jmap = np.concatenate(
-            [jmap, np.full((pad, B), -1, jmap.dtype)], axis=0
-        )
-    jm = np.concatenate([jmap, jtail], axis=0)
-    if not group_spread_ok(jm, rg):
-        return None
-    vals = _concat_group_aligned_vals(jnp.asarray(fl), jnp.asarray(tails))
-    vals, jmd = pad_group_rows(vals, jnp.asarray(jm))
-    return bucket_scatter_chunked(vals, jmd, rg)
-
-
-@jax.jit
-def fused_gather_sums(fl, tail, df, ti):
-    """[rg, B] per-lane position sums from a single-channel flushed
-    stream + tail (mw kernel outputs).  fl [D1K, B], tail [Wp, B]."""
-    B = fl.shape[1]
-    flz = jnp.concatenate([fl, jnp.zeros((1, B), fl.dtype)], axis=0)
-    tz = jnp.concatenate([tail, jnp.zeros((1, B), tail.dtype)], axis=0)
-    return (
-        jnp.take_along_axis(flz, df, axis=0)
-        + jnp.take_along_axis(tz, ti, axis=0)
-    )
-
-
-@jax.jit
-def _fused_assemble(fl, tails, df, ti):
-    """[rg, 4] from the cx kernel outputs.
-
-    fl [4, D1K, B] flushed stream, tails [4, Wp, B], df/ti [rg, B] gather
-    indices (sentinels = appended zero slots)."""
-    B = fl.shape[2]
-    flz = jnp.concatenate(
-        [fl, jnp.zeros((4, 1, B), fl.dtype)], axis=1
-    )
-    tz = jnp.concatenate(
-        [tails, jnp.zeros((4, 1, B), tails.dtype)], axis=1
-    )
-
-    def per_code(c):
-        g = jnp.take_along_axis(flz[c], df, axis=0)
-        g = g + jnp.take_along_axis(tz[c], ti, axis=0)
-        return g.sum(axis=1)
-
-    out = jax.lax.map(per_code, jnp.arange(4))
-    return out.T
-
-
-def band_expectations_cx(
-    tables,
-    batch: BandedBatch,
-    cdev,
-    ref_offsets: np.ndarray,
-    total_ref_len: int,
-    n_real: Optional[int] = None,
-    as_device: bool = False,
-):
-    """[total_ref_len, 4] expected base counts via the FUSED serving
-    kernel: forward-backward + expectation accumulation in one pass, the
-    posterior band never stored (fb_pallas.posteriors_expectations_
-    pallas_circ).  Device-call-compatible with band_expectations_circ.
-
-    cdev may be a fb.CircDeviceBatch (host-built circ streams) or a
-    fb_pallas.CompactCircBatch (batch is then a CompactBandedBatch and
-    every stream expands on device)."""
-    from .band import circ_flush_rows
-    from .fb_pallas import (
-        STEP_BLOCK, CompactCircBatch, posteriors_expectations_pallas_circ,
-        posteriors_expectations_pallas_compact,
-    )
-
-    n_real = batch.batch if n_real is None else n_real
-    rg = _round_up(max(total_ref_len, 1), 512)
-    d1k = _round_up(batch.num_steps, STEP_BLOCK)
-    if isinstance(cdev, CompactCircBatch):
-        _, fl, tails = posteriors_expectations_pallas_compact(
-            tables, cdev, batch.width
-        )
-    else:
-        fr = circ_flush_rows(batch, d1k)
-        _, fl, tails = posteriors_expectations_pallas_circ(
-            tables, cdev, fr
-        )
-    out = None
-    if _use_scatter_assembly():
-        # Targets derived on device from the lo stream (the host jmap
-        # build + upload costs ~300ms per bucket at B=3072).  Padded
-        # lanes (n = 0) derive all -1 targets, so n_real is moot.
-        jm_dev = fused_flush_jmaps_device(
-            jnp.asarray(batch.lo), jnp.asarray(ref_offsets),
-            jnp.asarray(batch.n), batch.width, batch.wp, d1k,
-        )
-        out = _scatter_assemble_lanesum_dev(fl, tails, jm_dev, rg)
-    if out is None:
-        df, ti = fused_expectation_indices(
-            batch, ref_offsets, rg, n_real, d1k
-        )
-        out = _fused_assemble(fl, tails, jnp.asarray(df), jnp.asarray(ti))
-    if as_device:
-        return out
-    return np.asarray(out)[:total_ref_len]
-
-
-@jax.jit
-def _sum_lanes_t(out3):
-    """[C, rg, B] -> [rg, C] lane reduction."""
-    return out3.sum(axis=2).T
-
-
-# ----------------------- multi-problem lanes (short-read packing) ---------
-
-
-@partial(jax.jit, static_argnames=("width", "rg"))
-def _expectations_multi_device(post, valid, yb, lo, dloc, e1,
-                               width: int, rg: int):
-    """[4, rg, B] per-lane expected base counts over per-lane virtual
-    reference spaces (each packed problem owns a disjoint window; the host
-    adds the windows into the real per-reference arrays)."""
-    D1, Wp, B = post.shape
-    k = jax.lax.broadcasted_iota(jnp.int32, (1, Wp, 1), 1)
-    i = lo[:, None, :].astype(jnp.int32) + k
-    j = dloc[:, None, :].astype(jnp.int32) - i
-    ok = valid & (i >= 1) & (j >= 1)
-
-    def per_code(c):
-        wc = jnp.where(ok & (yb == c), post, 0.0)
-        sp = jnp.concatenate(
-            [jnp.zeros((1, Wp, B), post.dtype), jnp.cumsum(wc, axis=0)],
-            axis=0,
-        )
-        acc = jnp.zeros((rg, B), post.dtype)
-        for kk in range(width):
-            gk = jnp.take_along_axis(
-                sp[:, kk, :], e1[kk : kk + rg + 1, :], axis=0
-            )
-            acc = acc + (gk[1:] - gk[:-1])
-        return acc
-
-    return jax.lax.map(per_code, jnp.arange(4, dtype=jnp.int8))
-
-
-def _lane_virtual_offsets(mb, per_problem_size):
-    """Assign each packed problem a disjoint window in a per-lane virtual
-    space, in lane (d0) order.  per_problem_size(p) -> window size needed
-    (plus the band-width slack the held gu value can reach)."""
-    by_lane = {}
-    for p, pr in enumerate(mb.problems):
-        by_lane.setdefault(pr.lane, []).append(p)
-    voff = np.zeros(len(mb.problems), dtype=np.int64)
-    vmax = 1
-    for lane, plist in by_lane.items():
-        plist.sort(key=lambda q: mb.problems[q].d0)
-        cur = 0
-        for p in plist:
-            voff[p] = cur
-            cur += per_problem_size(p) + mb.width + 1
-        vmax = max(vmax, cur)
-    return voff, vmax
-
-
-def _multi_gu(mb, voff, coord: str) -> np.ndarray:
-    """Monotone per-lane virtual-position stream gu [D1, B]:
-    coord='ref':  voff_p + dloc - lo   (position j at band row -k-1 shift)
-    coord='read': voff_p + lo          (position i at band row +k shift)
-    Values hold across spacers (voff spacing keeps them monotone)."""
-    D1, B = mb.lo.shape
-    gu = np.zeros((D1, B), dtype=np.int64)
-    by_lane = {}
-    for p, pr in enumerate(mb.problems):
-        by_lane.setdefault(pr.lane, []).append(p)
-    for lane, plist in by_lane.items():
-        plist.sort(key=lambda q: mb.problems[q].d0)
-        prev_end = 0
-        held = 0
-        for p in plist:
-            pr = mb.problems[p]
-            sl = slice(pr.d0, pr.final_d + 1)
-            lo = mb.lo[sl, lane].astype(np.int64)
-            if coord == "ref":
-                seg = voff[p] + mb.dloc[sl, lane].astype(np.int64) - lo
-            else:
-                seg = voff[p] + lo
-            gu[prev_end : pr.d0, lane] = held
-            gu[sl, lane] = seg
-            held = seg[-1]
-            prev_end = pr.final_d + 1
-        gu[prev_end:, lane] = held
-    return gu
-
-
-def _multi_boundaries(gu: np.ndarray, tmin: int, tmax: int) -> np.ndarray:
-    """E1[t - tmin, b] = #{d : gu(d, b) <= t} for t in [tmin, tmax], int32."""
-    D1, B = gu.shape
-    e1 = np.zeros((tmax - tmin + 1, B), dtype=np.int32)
-    ts = np.arange(tmin, tmax + 1, dtype=np.int64)
-    for b in range(B):
-        e1[:, b] = np.searchsorted(gu[:, b], ts, side="right")
-    return e1
-
-
-def multi_band_expectations(
-    post,
-    mb,
-    prob_ref_starts: np.ndarray,
-    exp_global: np.ndarray,
-) -> None:
-    """Accumulate expected base counts from a multi-problem posterior batch
-    into exp_global [total_ref_len, 4] (in place).
-
-    prob_ref_starts[p] = global position of problem p's reference window."""
-    voff, vmax = _lane_virtual_offsets(
-        mb, lambda p: mb.problems[p].n
-    )
-    rg = _round_up(max(int(vmax), 1), 256)
-    gu = _multi_gu(mb, voff, "ref")
-    e1 = _multi_boundaries(gu, 0, rg + mb.width)
-    out = np.asarray(
-        _expectations_multi_device(
-            jnp.asarray(post),
-            jnp.asarray(mb.valid),
-            jnp.asarray(mb.yb),
-            jnp.asarray(mb.lo),
-            jnp.asarray(mb.dloc),
-            jnp.asarray(e1),
-            width=mb.width,
-            rg=rg,
-        )
-    )  # [4, rg, B]
-    for p, pr in enumerate(mb.problems):
-        g0 = int(prob_ref_starts[p])
-        exp_global[g0 : g0 + pr.n, :] += out[:, voff[p] : voff[p] + pr.n,
-                                             pr.lane].T
-
-
-# --------------------- circular-layout (absolute rows) ---------------------
-#
-# In the circular band layout (band.circular_streams) a cell's row is
-# r = i mod Wp, so a REF position j walks diagonally through rows
-# (r = (d - j) mod Wp).  One "shear" pass re-indexes to u = (r - d) mod Wp,
-# where j is row-stable (u = -j mod Wp); because the shift d mod Wp cycles
-# with period Wp, grouping d into aligned blocks of Wp makes every shift a
-# STATIC roll (Wp rolls over 1/Wp of the array each - one extra pass).
-# Each position's contribution is then cumsum + TWO gathers (vs one gather
-# per band row in the band-relative path).
-
-
-def _shear_to_j_rows(a):
-    """[D1, Wp, B] circ (i-rows) -> [D1p, Wp, B] with j-stable rows
-    (u = (r - d) mod Wp), D1p = D1 rounded up to a multiple of Wp."""
-    D1, Wp, B = a.shape
-    D1p = _round_up(D1, Wp)
-    if D1p != D1:
-        a = jnp.pad(a, [(0, D1p - D1), (0, 0), (0, 0)])
-    g = a.reshape(D1p // Wp, Wp, Wp, B)
-    out = jnp.stack(
-        [jnp.roll(g[:, t], -t, axis=1) for t in range(Wp)], axis=1
-    )
-    return out.reshape(D1p, Wp, B)
-
-
-@partial(jax.jit, static_argnames=("rg",))
-def _expectations_circ_device(post, valid, yb, lo, ia, ib, rg: int):
-    """[rg, 4] expected base counts from a CIRCULAR-layout posterior band.
-
-    ia/ib [rg, B] int32: flattened (d_index * Wp + u_row) cumsum gather
-    indices per global ref position (host-precomputed, see
-    circ_run_boundaries); positions outside a lane's window have ia == ib.
-    """
-    D1, Wp, B = post.shape
-    r = jax.lax.broadcasted_iota(jnp.int32, (1, Wp, 1), 1)
-    lo3 = lo[:, None, :].astype(jnp.int32)
-    t = jnp.remainder(r - lo3, Wp)
-    i = lo3 + t
-    d3 = jax.lax.broadcasted_iota(jnp.int32, (D1, 1, 1), 0)
-    j = d3 - i
-    ok = valid & (i >= 1) & (j >= 1)
-
-    pm = _shear_to_j_rows(jnp.where(ok, post, 0.0))
-    ybs = _shear_to_j_rows(yb.astype(jnp.int8))
-    D1p = pm.shape[0]
-
-    def per_code(c):
-        wc = jnp.where(ybs == c, pm, 0.0)
-        sp = jnp.concatenate(
-            [jnp.zeros((1, Wp, B), post.dtype), jnp.cumsum(wc, axis=0)],
-            axis=0,
-        ).reshape((D1p + 1) * Wp, B)
-        ga = jnp.take_along_axis(sp, ia, axis=0)
-        gb = jnp.take_along_axis(sp, ib, axis=0)
-        return (gb - ga).sum(axis=1)
-
-    out = jax.lax.map(per_code, jnp.arange(4, dtype=jnp.int8))
-    return out.T
-
-
-def circ_run_boundaries(
-    batch: BandedBatch, ref_offsets: np.ndarray, rg: int, n_real: int
-) -> Tuple[np.ndarray, np.ndarray]:
-    """(ia, ib) [rg, B] int32 flattened cumsum gather indices for
-    _expectations_circ_device.
-
-    For global position v on lane b with window start off: local
-    j = v - off + 1, row u = (-j) mod Wp, d-run = {d : d - lo(d) in
-    [j, j + width - 1]} delimited by E1'[x] = #{d : d - lo(d) <= x}."""
-    D1 = batch.num_steps
-    Wp = batch.wp
-    W = batch.width
-    B = batch.batch
-    D1p = -(-D1 // Wp) * Wp
-    row_stride = Wp
-    ia = np.zeros((rg, B), dtype=np.int32)
-    ib = np.zeros((rg, B), dtype=np.int32)
-    base = np.arange(D1, dtype=np.int64)
-    vs = np.arange(rg, dtype=np.int64)
-    for b in range(n_real):
-        gu = base - batch.lo[:, b].astype(np.int64)  # local, monotone 0/1
-        n = int(batch.n[b])
-        off = int(ref_offsets[b])
-        j = vs - off + 1
-        inside = (j >= 1) & (j <= n)
-        jc = np.clip(j, 1, max(n, 1))
-        e_lo = np.searchsorted(gu, jc - 1, side="right")
-        e_hi = np.searchsorted(gu, jc + W - 1, side="right")
-        u = (-jc) % Wp
-        ia_b = (e_lo * row_stride + u).astype(np.int64)
-        ib_b = (e_hi * row_stride + u).astype(np.int64)
-        ia[:, b] = np.where(inside, ia_b, 0)
-        ib[:, b] = np.where(inside, ib_b, 0)
-    assert (D1p + 1) * Wp < np.iinfo(np.int32).max
-    return ia, ib
-
-
-def band_expectations_circ(
-    post_c,
-    batch: BandedBatch,
-    cdev,
-    ref_offsets: np.ndarray,
-    total_ref_len: int,
-    n_real: Optional[int] = None,
-    as_device: bool = False,
-) -> np.ndarray:
-    """[total_ref_len, 4] expected base counts from a CIRCULAR-layout
-    posterior batch (the fb.CircDeviceBatch used to produce it supplies
-    the matching yb/valid streams; post_c may stay on device).
-    as_device=True returns the quantized [rg, 4] device array without a
-    host sync (see band_expectations)."""
-    n_real = batch.batch if n_real is None else n_real
-    rg = _round_up(max(total_ref_len, 1), 512)
-    ia, ib = circ_run_boundaries(batch, ref_offsets, rg, n_real)
-    out = _expectations_circ_device(
-        jnp.asarray(post_c),
-        cdev.valid,
-        cdev.yb,
-        jnp.asarray(batch.lo),
-        jnp.asarray(ia),
-        jnp.asarray(ib),
-        rg=rg,
-    )
-    if as_device:
-        return out
-    return np.asarray(out)[:total_ref_len]

@@ -1,18 +1,20 @@
-"""Banded pair-HMM forward-backward on TPU (pure-JAX wavefront engine).
+"""Banded pair-HMM forward-backward in plain JAX (the XLA scan engine).
 
-This is the TPU-native replacement for the compute core of cPecanRealign
-(reference: invoked per read via subprocess at src/margin/marginAlignLib.py:315
-and src/margin/marginCallerLib.py:49-57).  Instead of one C process per read,
-a whole batch of banded read/reference DP matrices advances together, one
+This replaces the compute core of cPecanRealign (reference: invoked per read
+via subprocess at src/margin/marginAlignLib.py:315 and
+src/margin/marginCallerLib.py:49-57).  Instead of one C process per read, a
+whole batch of banded read/reference DP matrices advances together, one
 anti-diagonal per scan step:
 
-  - arrays are [Wp, B] (band window in sublanes, reads in lanes);
+  - arrays are [Wp, B] (band window rows, reads last);
   - band motion (0/1 per step, per read) is expressed as selects between
     rolled arrays, so there are no gathers on the hot path;
   - arithmetic is scaled linear-space float32 with one rescale per step
     (the classic pair-HMM scaling trick; no transcendentals per cell);
   - the backward scan fuses posterior-match emission and Baum-Welch
     expected-count accumulation, so EM needs no extra passes.
+
+It is the forward-backward engine on every platform (ops/dispatch.py).
 
 State layout and model semantics are in models/hmm.py.  Grid is in prefix
 coordinates (see ops/band.py).
@@ -62,40 +64,13 @@ class DeviceBatch(NamedTuple):
     final_k: jnp.ndarray
 
 
-def device_batch(batch: BandedBatch) -> DeviceBatch:
-    return DeviceBatch(
-        xb=jnp.asarray(batch.xb),
-        yb=jnp.asarray(batch.yb),
-        valid=jnp.asarray(batch.valid),
-        s1=jnp.asarray(batch.s1),
-        s2=jnp.asarray(batch.s2),
-        final_d=jnp.asarray(batch.final_d),
-        final_k=jnp.asarray(batch.final_k),
-    )
-
-
-class CircDeviceBatch(NamedTuple):
-    """Circular-layout device streams (see band.circular_streams): no
-    s1/s2 shift streams — band motion is implicit in the row map."""
-
-    xb: jnp.ndarray      # [D1, Wp, B] int8
-    yb: jnp.ndarray      # [D1, Wp, B] int8
-    valid: jnp.ndarray   # [D1, Wp, B] bool
-    final_d: jnp.ndarray  # [B] int32
-    fink: jnp.ndarray     # [B] int32  terminal circular row (m mod Wp)
-
-
-def circ_device_batch(batch: BandedBatch) -> CircDeviceBatch:
-    from .band import circular_streams
-
-    xb_c, yb_c, valid_c, fink = circular_streams(batch)
-    return CircDeviceBatch(
-        xb=jnp.asarray(xb_c),
-        yb=jnp.asarray(yb_c),
-        valid=jnp.asarray(valid_c),
-        final_d=jnp.asarray(batch.final_d),
-        fink=jnp.asarray(fink),
-    )
+def device_batch(batch: BandedBatch, device=None) -> DeviceBatch:
+    """The batch's band arrays on `device` (committed to it), or on the
+    default device when None."""
+    return jax.device_put(DeviceBatch(
+        xb=batch.xb, yb=batch.yb, valid=batch.valid, s1=batch.s1,
+        s2=batch.s2, final_d=batch.final_d, final_k=batch.final_k,
+    ), device)
 
 
 # --------------------------------------------------------------------- helpers
@@ -137,17 +112,11 @@ def _emissions(tables: FbTables, xb_d, yb_d):
 # --------------------------------------------------------------------- forward
 
 
-@partial(jax.jit, static_argnames=("save_all_states",))
-def forward(
-    tables: FbTables, batch: DeviceBatch, save_all_states: bool = True
-):
-    """Scaled forward pass.
-
-    Returns (F_all, lsf, logZ):
-      F_all [D1, S, Wp, B]  scaled forward values (S=5, or 1 = match only)
-      lsf   [D1, B]         cumulative log scale factor per step
-      logZ  [B]             log likelihood of each pair
-    """
+def _forward(tables: FbTables, batch: DeviceBatch, save_all_states: bool):
+    """Scaled forward pass: (F_all [D1, S, Wp, B], lsf [D1, B] cumulative
+    log scale, lc [D1, B] per-step log scale, logZ [B], log_term [B] =
+    logZ - lsf[final_d] kept apart so the backward never subtracts two
+    ~|logZ|-sized numbers)."""
     D1, Wp, B = batch.xb.shape
     dtype = tables.T.dtype
 
@@ -180,9 +149,10 @@ def forward(
         fmax = jnp.max(f_new, axis=(0, 1))  # [B]
         c = jnp.where(fmax > 0, fmax, 1.0)
         f_new = f_new / c
-        ls = ls + jnp.log(c)
+        lc = jnp.log(c)
+        ls = ls + lc
         out = f_new if save_all_states else f_new[:1]
-        return (f_new, f1, c, ls), (out, ls)
+        return (f_new, f1, c, ls), (out, ls, lc)
 
     xs = (
         batch.xb[1:], batch.yb[1:], batch.valid[1:],
@@ -190,7 +160,7 @@ def forward(
     )
     ls0 = jnp.zeros((B,), dtype)
     c0 = jnp.ones((B,), dtype)
-    (_, _, _, _), (fs, lss) = jax.lax.scan(
+    (_, _, _, _), (fs, lss, lcs) = jax.lax.scan(
         step, (f0, jnp.zeros_like(f0), c0, ls0), xs
     )
 
@@ -198,14 +168,30 @@ def forward(
         [(f0 if save_all_states else f0[:1])[None], fs], axis=0
     )
     lsf = jnp.concatenate([ls0[None], lss], axis=0)
+    lc = jnp.concatenate([ls0[None], lcs], axis=0)
 
     # logZ: sum of states at the terminal cell (m, n), plus its scale.
     d_idx = batch.final_d.astype(jnp.int32)
     k_idx = batch.final_k.astype(jnp.int32)
     b_idx = jnp.arange(B)
     f_term = F_all[d_idx, :, k_idx, b_idx]  # [B, S]
-    ls_term = lsf[d_idx, b_idx]
-    logZ = jnp.log(jnp.maximum(jnp.sum(f_term, axis=-1), _TINY)) + ls_term
+    log_term = jnp.log(jnp.maximum(jnp.sum(f_term, axis=-1), _TINY))
+    logZ = log_term + lsf[d_idx, b_idx]
+    return F_all, lsf, lc, logZ, log_term
+
+
+@partial(jax.jit, static_argnames=("save_all_states",))
+def forward(
+    tables: FbTables, batch: DeviceBatch, save_all_states: bool = True
+):
+    """Scaled forward pass.
+
+    Returns (F_all, lsf, logZ):
+      F_all [D1, S, Wp, B]  scaled forward values (S=5, or 1 = match only)
+      lsf   [D1, B]         cumulative log scale factor per step
+      logZ  [B]             log likelihood of each pair
+    """
+    F_all, lsf, _, logZ, _ = _forward(tables, batch, save_all_states)
     return F_all, lsf, logZ
 
 
@@ -239,13 +225,19 @@ def forward_backward(
     cPecanEm expectations, SURVEY.md §2.2)."""
     D1, Wp, B = batch.xb.shape
     dtype = tables.T.dtype
-    F_all, lsf, logZ = forward(tables, batch, save_all_states=True)
+    F_all, _, lc, logZ, log_term = _forward(tables, batch, True)
 
     kr = jnp.arange(Wp, dtype=jnp.int32)[:, None]  # [Wp, 1]
 
+    # Posterior scale without cumulative sums: gamma at d is
+    # F[d] * B[d] * exp(lsf[d] + bls[d] - logZ), and that exponent equals
+    # R[d+1] + log cb[d] - log_term with R[d] = sum_{t >= d} (log cb[t] -
+    # log cf[t]) (forward steps past a lane's terminal diagonal have
+    # scale 1).  R stays O(1) where lsf and bls grow to |logZ|, so f32
+    # keeps the posteriors' relative precision at any read length.
     def step(carry, xs):
-        b1, b2, c_prev, bls1, tc, em, eg = carry
-        (f_d, lsf_d, valid_d, xb_d, yb_d, xb1, yb1, xb2, yb2,
+        b1, b2, c_prev, r1, tc, em, eg = carry
+        (f_d, lc_d, valid_d, xb_d, yb_d, xb1, yb1, xb2, yb2,
          s1n, s2n, d_val) = xs
 
         e_match2, _ = _emissions(tables, xb2, yb2)
@@ -269,10 +261,11 @@ def forward_backward(
         bmax = jnp.max(b_new, axis=(0, 1))
         c = jnp.where(bmax > 0, bmax, 1.0)
         b_new = b_new / c
-        bls0 = bls1 + jnp.log(c)
+        lcb = jnp.log(c)
+        r0 = r1 + (lcb - lc_d)
 
         if want_posteriors or want_counts:
-            alpha0 = jnp.exp(lsf_d + bls0 - logZ)  # [B] scale for gamma at d
+            alpha0 = jnp.exp(r1 + lcb - log_term)  # [B] scale for gamma at d
             gamma = f_d * b_new * alpha0[None, None, :]  # [5, Wp, B]
             post_out = gamma[0] if want_posteriors else jnp.zeros((0,), dtype)
         else:
@@ -281,7 +274,7 @@ def forward_backward(
         if want_counts:
             # Transition counts: F[s][d] * T[s,s'] * (e * B)[s'][succ].
             # All rows of q are on the bls[d+1] scale after the c_prev fix.
-            alpha1 = jnp.exp(lsf_d + bls1 - logZ)
+            alpha1 = jnp.exp(r1 - log_term)
             g = jnp.einsum("swb,twb->st", f_d, q * alpha1[None, None, :], precision="highest")
             tc = tc + tables.T * g
             # Emission counts from state occupancies gamma: the match state
@@ -298,12 +291,12 @@ def forward_backward(
             is_gap = jnp.array([0.0, 1, 1, 1, 1], dtype)[:, None]
             eg = eg + (gx_occ * (1 - is_y) + gy_occ * is_y) * is_gap
 
-        return (b_new, b1, c, bls0, tc, em, eg), post_out
+        return (b_new, b1, c, r0, tc, em, eg), post_out
 
     # Per-step inputs, indexed at d, d+1 and d+2 (zero-padded past the end).
     xs = (
         F_all,
-        lsf,
+        lc,
         batch.valid,
         batch.xb, batch.yb,
         _padded(batch.xb, 1), _padded(batch.yb, 1),

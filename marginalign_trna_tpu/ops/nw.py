@@ -1,25 +1,23 @@
 """Banded affine-gap Viterbi alignment (guide alignment kernel).
 
-TPU-native replacement for the seed-and-extend guide mappers the reference
+Device replacement for the seed-and-extend guide mappers the reference
 shells out to (LAST/BWA/minimap2; src/margin/mappers/*.py): after host-side
 k-mer seeding and chaining picks a corridor, this kernel produces a
 base-level alignment of the read against a reference window with a banded
 3-state (match / ref-gap / read-gap) max-plus wavefront, batched over reads.
 
-Pointers are emitted per cell ([D1, Wp, B] uint8) and the cigar is recovered
-by a host-side traceback (tiny sequential work; see native/ for the C
-accelerator).  Same band machinery as ops/fb.py.
+Pointers are emitted per cell ([D1, Wp, B] uint8); the traceback walks them
+on device (ops/traceback_device.py) and only a 2-bit move stream comes back
+to the host.  Same band machinery as ops/fb.py.
 """
 from __future__ import annotations
 
 from functools import partial
-from typing import List, NamedTuple, Tuple
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
-from .band import BandedBatch
 from .fb import DeviceBatch, _shift
 
 NEG = -1e30
@@ -54,8 +52,8 @@ def banded_nw(params_arr: jnp.ndarray, batch: DeviceBatch) -> NwResult:
     m0 = neg.at[0, :].set(0.0)  # cell (0,0)
     f0 = jnp.stack([m0, neg, neg])  # [3, Wp, B]
 
-    # Terminal-cell selector (per-step gathers are pathological inside TPU
-    # scans; a masked reduction against this constant mask is cheap).
+    # Terminal-cell selector: a masked reduction against this constant
+    # mask picks each lane's terminal band row every step.
     term_sel = (
         jnp.arange(Wp, dtype=jnp.int32)[:, None]
         == batch.final_k.astype(jnp.int32)[None, :]
@@ -127,102 +125,3 @@ def banded_nw(params_arr: jnp.ndarray, batch: DeviceBatch) -> NwResult:
         score=jnp.max(term_final, axis=-1),
         final_state=jnp.argmax(term_final, axis=-1),
     )
-
-
-def banded_nw_auto(params_arr: jnp.ndarray, batch: DeviceBatch) -> NwResult:
-    """banded_nw via the Pallas wavefront kernel on accelerators, the XLA
-    scan on CPU (override with MARGINALIGN_KERNEL=pallas|xla)."""
-    from .dispatch import use_pallas
-
-    if use_pallas():
-        from .wavefront_pallas import banded_nw_pallas
-
-        return banded_nw_pallas(params_arr, batch)
-    return banded_nw(params_arr, batch)
-
-
-def traceback(
-    pointers: np.ndarray,
-    batch: BandedBatch,
-    b: int,
-    final_state: int = S_M,
-    bits: int = 8,
-) -> List[Tuple[int, int]]:
-    """Host traceback for read b: returns aligned ops [(op, len)] with
-    0=M, 1=I (read), 2=D (ref) in prefix coordinates from (m,n) to (0,0).
-    Uses the native decoder when built (native/margin_native.cpp).
-    bits < 8: pointers are bit-packed 8//bits cells per byte
-    (wavefront_pallas.pack_ptr_bits)."""
-    m, n = int(batch.m[b]), int(batch.n[b])
-    return _traceback_arrays(
-        np.ascontiguousarray(pointers), batch.lo[:, b], b, m, n,
-        final_state, bits,
-    )
-
-
-def traceback_multi(
-    pointers: np.ndarray, mb, p: int, final_state: int = S_M
-) -> List[Tuple[int, int]]:
-    """Traceback for problem p of a multi-problem batch
-    (band.pack_multi_banded_batch): the problem's step range and lane slice
-    out to an ordinary single-problem view."""
-    pr = mb.problems[p]
-    ptr = np.ascontiguousarray(
-        pointers[pr.d0 : pr.final_d + 1, :, pr.lane : pr.lane + 1]
-    )
-    lo = np.ascontiguousarray(mb.lo[pr.d0 : pr.final_d + 1, pr.lane])
-    return _traceback_arrays(ptr, lo, 0, pr.m, pr.n, final_state)
-
-
-def _traceback_arrays(
-    pointers: np.ndarray,
-    lo: np.ndarray,
-    b: int,
-    m: int,
-    n: int,
-    final_state: int,
-    bits: int = 8,
-) -> List[Tuple[int, int]]:
-    from .. import native as _native
-
-    nat = _native.nw_traceback(pointers, lo, b, m, n, final_state,
-                               bits=bits)
-    if nat is not None:
-        return nat
-    if bits != 8:
-        pointers = _native.unpack_ptrs(pointers, bits, pointers.shape[1]
-                                       * (8 // bits))
-    i, j = m, n
-    state = final_state
-    ops_rev: List[int] = []
-    while not (i == 0 and j == 0):
-        d = i + j
-        k = i - int(lo[d])
-        p = int(pointers[d, k, b])
-        if state == S_M:
-            if i == 0 or j == 0:
-                # Degenerate: fall back to gap states along the edge.
-                state = S_IX if i == 0 else S_IY
-                continue
-            ops_rev.append(0)
-            state = p & 0b11
-            i -= 1
-            j -= 1
-        elif state == S_IX:
-            ops_rev.append(2)  # deletion in read (ref consumed)
-            state = S_M if ((p >> 2) & 1) == 0 else S_IX
-            j -= 1
-        else:
-            ops_rev.append(1)  # insertion in read
-            state = S_M if ((p >> 3) & 1) == 0 else S_IY
-            i -= 1
-        assert i >= 0 and j >= 0, "traceback escaped the grid"
-    # Run-length encode reversed ops.
-    ops_rev.reverse()
-    out: List[Tuple[int, int]] = []
-    for op in ops_rev:
-        if out and out[-1][0] == op:
-            out[-1] = (op, out[-1][1] + 1)
-        else:
-            out.append((op, 1))
-    return out

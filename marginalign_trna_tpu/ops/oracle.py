@@ -2,8 +2,8 @@
 
 Same model semantics as ops/fb.py (prefix coordinates, start distribution pi
 at cell (0,0), unit end weights at (m,n)) computed over the full DP matrix in
-log space.  Used only by tests to validate the banded TPU engine and the
-Pallas kernel; never on a hot path.
+log space.  Used only by tests to validate the banded device engines;
+never on a hot path.
 """
 from __future__ import annotations
 

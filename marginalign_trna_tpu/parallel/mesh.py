@@ -5,7 +5,8 @@ over read chunks via jobTree child processes, reduced through pickled files
 (src/margin/utils.py:127-180, src/margin/marginCallerLib.py:171-187).  Here
 the same strategy is a one-axis ``jax.sharding.Mesh``: read lanes shard over
 the "data" axis, the banded wavefront runs per shard, and expectation
-tensors merge with ``jax.lax.psum`` (ICI within a slice, DCN across hosts).
+tensors merge with ``jax.lax.psum`` (NCCL between the GPUs of a host, which
+NVLink joins all to all, so the mesh is one flat axis).
 
 Tensor/pipeline/expert parallelism are deliberately absent: the model is
 5x5 transitions + 5x16 emissions (SURVEY.md §2.3) — there is nothing to
@@ -22,24 +23,17 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-import warnings
-
-with warnings.catch_warnings():
-    # The modern jax.shard_map enforces varying-manual-axes typing on scan
-    # carries, which would force axis-name plumbing through the generic FB
-    # engine; the legacy entry point with check_rep=False matches our psum
-    # usage.  TODO(pallas round): migrate to jax.shard_map + lax.pvary.
-    warnings.simplefilter("ignore", DeprecationWarning)
-    from jax.experimental.shard_map import shard_map as _legacy_shard_map
+from ..models.hmm import GAP_X_STATES
+from ..ops.fb import DeviceBatch, FbTables, forward_backward
 
 
 def shard_map(f, *, mesh, in_specs, out_specs):
-    return _legacy_shard_map(
-        f, mesh=mesh, in_specs=in_specs, out_specs=out_specs, check_rep=False
+    """jax.shard_map without varying-manual-axes checks: the FB engine's
+    scan carries start from replicated constants and mix with lane-sharded
+    inputs, and every output here is either lane-sharded or psummed."""
+    return jax.shard_map(
+        f, mesh=mesh, in_specs=in_specs, out_specs=out_specs, check_vma=False
     )
-
-from ..ops.fb import DeviceBatch, FbTables, forward_backward
-from ..models.hmm import GAP_X_STATES
 
 
 def make_data_mesh(devices=None) -> Mesh:
@@ -113,34 +107,14 @@ def make_em_train_step(mesh: Mesh):
         out_specs=(P(), P(), P(), P()),
     )
     def _counts(tables_tuple, batch):
-        from ..ops.dispatch import use_pallas
-
-        tables = FbTables(*tables_tuple)
-        if use_pallas():
-            from ..ops.fb_pallas_counts import (
-                counts_pallas, match_counts_from_posteriors,
-            )
-
-            res = counts_pallas(tables, batch)
-            tc_local = res.trans_counts
-            em_local = (
-                res.emit_match if res.emit_match is not None
-                else match_counts_from_posteriors(res.posteriors, batch)
-            )
-            eg_local = res.emit_gap
-            logZ = res.logZ
-        else:
-            res = forward_backward(
-                tables, batch, want_posteriors=False, want_counts=True
-            )
-            tc_local, em_local, eg_local = (
-                res.trans_counts, res.emit_match, res.emit_gap
-            )
-            logZ = res.logZ
-        tc = jax.lax.psum(tc_local, "data")
-        em = jax.lax.psum(em_local, "data")
-        eg = jax.lax.psum(eg_local.astype(jnp.float32), "data")
-        ll = jax.lax.psum(jnp.sum(logZ), "data")
+        res = forward_backward(
+            FbTables(*tables_tuple), batch, want_posteriors=False,
+            want_counts=True,
+        )
+        tc = jax.lax.psum(res.trans_counts, "data")
+        em = jax.lax.psum(res.emit_match, "data")
+        eg = jax.lax.psum(res.emit_gap, "data")
+        ll = jax.lax.psum(jnp.sum(res.logZ), "data")
         return tc, em, eg, ll
 
     @jax.jit
@@ -201,7 +175,7 @@ def make_sharded_caller_expectations(mesh: Mesh, width: int, rg: int):
         local = _expectations_device(
             post, valid, yb, lo, e1, width=width, rg=rg
         )
-        return jax.lax.psum(local, "data")
+        return jax.lax.psum(jnp.sum(local, axis=2).T, "data")
 
     return jax.jit(_exp)
 

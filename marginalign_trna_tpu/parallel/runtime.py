@@ -1,23 +1,20 @@
-"""Multi-host runtime: distributed init, host sharding, transient retry.
+"""Multi-host runtime: distributed init, host sharding, local devices.
 
-The reference's runtime is jobTree: worker processes on cluster nodes, a
-shared filesystem, and retry-on-failure (README.md:48-52).  The equivalents:
+The reference's runtime is jobTree: worker processes on cluster nodes and a
+shared filesystem (README.md:48-52).  The equivalents:
 
 - ``initialize_distributed``: ``jax.distributed.initialize`` wrapper (the
-  comm backend is the JAX runtime itself — ICI within a slice, DCN across
-  hosts; no NCCL/MPI layer to manage).
+  JAX runtime carries the collectives: NCCL between GPUs).
 - ``shard_for_host``: deterministic split of a job list across hosts; each
   host packs and processes its own lanes, count tensors merge with psum
   (see parallel/mesh.py).
-- ``with_retries``: transient-failure wrapper for device calls (the
-  jobTree job-retry analog; useful against flaky interconnect/RPC layers).
+- ``local_dispatch_devices``: the devices bucket loops round-robin over.
 """
 from __future__ import annotations
 
 import logging
 import os
-import time
-from typing import Callable, List, Optional, Sequence, TypeVar
+from typing import List, Optional, Sequence, TypeVar
 
 logger = logging.getLogger("marginalign.runtime")
 
@@ -153,38 +150,20 @@ def allgather_host_objects(obj):
 def local_dispatch_devices():
     """Local devices for round-robin bucket dispatch (production
     multi-device data parallelism within one process; the jobTree
-    maxThreads analog).  MARGINALIGN_LOCAL_DEVICES caps the count
-    (0 or 1 disables multi-device dispatch)."""
+    maxThreads analog).  A default device set by the caller
+    (jax.default_device) pins dispatch to that one device.
+    MARGINALIGN_LOCAL_DEVICES caps the count (0 or 1 disables
+    multi-device dispatch)."""
     import jax
 
-    devices = jax.local_devices()
+    default = jax.config.jax_default_device
+    if isinstance(default, str):
+        devices = jax.local_devices(backend=default)[:1]
+    elif default is not None:
+        devices = [default]
+    else:
+        devices = jax.local_devices()
     cap = os.environ.get("MARGINALIGN_LOCAL_DEVICES")
     if cap is not None:
         devices = devices[: max(1, int(cap))]
     return devices
-
-
-def with_retries(
-    fn: Callable[[], T],
-    attempts: int = 3,
-    base_delay: float = 1.0,
-    retriable: type = Exception,
-) -> T:
-    """Run fn, retrying transient failures with exponential backoff
-    (the jobTree job-retry analog)."""
-    last: Optional[BaseException] = None
-    for attempt in range(attempts):
-        try:
-            return fn()
-        except retriable as exc:  # noqa: BLE001 - deliberate broad default
-            last = exc
-            if attempt + 1 == attempts:
-                break
-            delay = base_delay * (2**attempt)
-            logger.warning(
-                "transient failure (attempt %d/%d): %s; retrying in %.1fs",
-                attempt + 1, attempts, exc, delay,
-            )
-            time.sleep(delay)
-    assert last is not None
-    raise last

@@ -1,4 +1,5 @@
-"""marginCaller tests: synthetic ground truth + reference fixtures."""
+"""marginCaller tests on the seeded fixtures (reads simulated from the
+references, called against a SNP-mutated copy)."""
 import os
 
 import numpy as np
@@ -11,7 +12,10 @@ from marginalign_trna_tpu.io.sam import SamFile
 from marginalign_trna_tpu.io.vcf import vcf_read
 from marginalign_trna_tpu.models.hmm import PairHmm
 
-MODEL = "/root/repo/marginalign_trna_tpu/models/last_hmm_20.txt"
+MODEL = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "marginalign_trna_tpu", "models", "last_hmm_20.txt",
+)
 
 
 def test_calc_base_posterior_probs_uniform():
@@ -39,16 +43,10 @@ def _load_mutations(fixtures_dir):
 
 @pytest.mark.parametrize("no_margin", [True, False])
 def test_caller_on_mutated_reference(fixtures_dir, tmp_path, no_margin):
-    """Call SNVs from the pre-aligned reads against the mutated reference
-    and measure precision/recall against the known 542 mutations, like the
+    """Call SNVs from the true alignments against the mutated reference
+    and measure precision/recall against the known mutations, like the
     reference's validateVcf (tests/tests.py:62-78)."""
     sam_path = os.path.join(fixtures_dir, "inputBigMutations.sam")
-    if not no_margin:
-        # Margin mode runs the full FB; trim to a subset for test speed.
-        sam = SamFile.read(sam_path)
-        sam.records = sam.records[:6]
-        sam_path = str(tmp_path / "subset.sam")
-        sam.write(sam_path)
     out = str(tmp_path / "out.vcf")
     hmm = PairHmm.load(MODEL)
     calls = margin_caller(
@@ -65,17 +63,18 @@ def test_caller_on_mutated_reference(fixtures_dir, tmp_path, no_margin):
     inter = len(known & imputed)
     precision = inter / len(imputed)
     recall = inter / len(known)
-    # The reference logs, never asserts; we enforce sane floors.
-    assert precision > 0.5, (precision, recall)
-    if no_margin:
-        assert recall > 0.3, (precision, recall)
+    # The reference logs, never asserts; we enforce floors.  On the CPU
+    # backend the seeded fixture (~2.6x depth, ~8% read error) gives
+    # precision 0.519 / recall 0.793 without margin and 0.500 / 0.805
+    # with it; the floors sit ~0.1 below to absorb platform rounding.
+    assert precision > 0.4, (precision, recall)
+    assert recall > 0.65, (precision, recall)
 
 
-def test_caller_bucket_pipeline_matches_multi(fixtures_dir, tmp_path,
-                                              monkeypatch):
-    """The pipelined bucket-window path (multi-packing off, tiny
-    max_batch_cells so several buckets stay in flight and the drain loop
-    runs) calls the same variants as the multi-problem-lane path."""
+def test_caller_bucket_pipeline_matches_multi(fixtures_dir, tmp_path):
+    """The pipelined bucket window (tiny max_batch_cells: many buckets in
+    flight, the drain loop runs) calls the same variants as one bucket
+    holding every problem."""
     sam = SamFile.read(os.path.join(fixtures_dir, "inputBigMutations.sam"))
     sam.records = sam.records[:6]
     sam_path = str(tmp_path / "subset.sam")
@@ -83,11 +82,12 @@ def test_caller_bucket_pipeline_matches_multi(fixtures_dir, tmp_path,
     hmm = PairHmm.load(MODEL)
     ref = os.path.join(fixtures_dir, "referencesMutated.fa")
 
-    out_multi = str(tmp_path / "multi.vcf")
-    calls_multi = margin_caller(sam_path, ref, out_multi,
-                                alignment_model=hmm, error_model=hmm)
+    out_multi = str(tmp_path / "one_bucket.vcf")
+    calls_multi = margin_caller(
+        sam_path, ref, out_multi, alignment_model=hmm, error_model=hmm,
+        options=CallerOptions(max_batch_cells=10**9),
+    )
 
-    monkeypatch.setenv("MARGINALIGN_MULTI", "off")
     out_bucket = str(tmp_path / "bucket.vcf")
     calls_bucket = margin_caller(
         sam_path, ref, out_bucket, alignment_model=hmm, error_model=hmm,

@@ -14,8 +14,7 @@ LONG = os.environ.get("MARGINALIGN_LONG_TESTS") == "1"
 
 
 def _run(cmd, **kw):
-    env = dict(os.environ, MARGINALIGN_PLATFORM="cpu")
-    env.pop("JAX_PLATFORMS", None)
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     r = subprocess.run(cmd, capture_output=True, env=env, text=True, **kw)
     assert r.returncode == 0, (cmd, r.stderr[-2000:])
     return r

@@ -250,3 +250,26 @@ def test_em_update_the_band(rng):
         # Training still helps despite band changes between iterations.
         assert best.likelihood_history[-1] > best.likelihood_history[0]
         best.hmm.check()
+
+
+@pytest.mark.parametrize("trials,lockstep,want", [
+    (3, True, 3), (1, True, 1), (3, False, 1),
+])
+def test_em_batch_budget_divides_among_lockstep_trials(
+        rng, monkeypatch, trials, lockstep, want):
+    """The E-step batches of a lockstep run share the device budget among
+    the trials that the vmap stacks; serial trials take it whole."""
+    from marginalign_trna_tpu.ops import dispatch
+
+    asked = []
+    real = dispatch.max_batch_cells_for
+
+    def spy(stage, device=None, trials=1):
+        asked.append((stage, trials))
+        return real(stage, device, trials)
+
+    monkeypatch.setattr(dispatch, "max_batch_cells_for", spy)
+    train_em(_synthetic_jobs(rng, n_pairs=4, length=30),
+             EmOptions(trials=trials, iterations=1, band_width=9,
+                       lockstep=lockstep))
+    assert asked == [("em", want)]

@@ -58,186 +58,3 @@ def test_n_bases_excluded(rng):
     post = np.ones((D1, Wp, B), np.float32) * batch.valid
     got = band_expectations(post, batch, np.zeros(1, np.int64), 20)
     assert np.allclose(got, 0.0)
-
-
-def test_bucket_scatter_matches_numpy(rng):
-    """The gather-free bucket-scatter assembly kernel (interpret mode)
-    reproduces a direct numpy scatter for monotone 0/1-step target
-    streams like the fused kernels' flush streams."""
-    from marginalign_trna_tpu.ops.bucket_scatter import (
-        GROUP, bucket_scatter_chunked, group_spread_ok, pad_group_rows,
-    )
-    import jax.numpy as jnp
-
-    D, B, C, rg = 500, 4, 3, 512
-    jmap = np.full((D, B), -1, np.int32)
-    for b in range(B):
-        v = int(rng.integers(0, 5))
-        for d in range(D):
-            if rng.random() < 0.55 and v < rg:
-                jmap[d, b] = v
-                v += 1
-    vals = rng.random((C, D, B)).astype(np.float32)
-
-    want = np.zeros((C, rg, B), np.float32)
-    for b in range(B):
-        for d in range(D):
-            if jmap[d, b] >= 0:
-                want[:, jmap[d, b], b] += vals[:, d, b]
-
-    assert group_spread_ok(jmap, rg)
-    v_p, j_p = pad_group_rows(jnp.asarray(vals), jnp.asarray(jmap))
-    got = np.asarray(bucket_scatter_chunked(v_p, j_p, rg))
-    assert got.shape == (C, rg, B)
-    assert np.allclose(got, want, atol=1e-5), np.abs(got - want).max()
-
-
-def test_bucket_scatter_spread_check():
-    """group_spread_ok rejects out-of-range targets (the gather-fallback
-    trigger); in-range targets of any per-group spread are accepted now
-    that the merge stage statically visits every output block."""
-    from marginalign_trna_tpu.ops.bucket_scatter import group_spread_ok
-
-    jmap = np.full((128, 2), -1, np.int32)
-    jmap[0, 0] = 0
-    jmap[1, 1] = 512  # out of range for rg=512
-    assert not group_spread_ok(jmap, 512)
-    assert group_spread_ok(jmap, 1024)  # wide spread, in range: fine
-    jmap[1, 1] = 100
-    assert group_spread_ok(jmap, 256)
-
-
-def test_monotone_gather_matches_numpy(rng):
-    """The gather-free monotone_gather kernel (interpret mode) matches a
-    direct numpy take_along_axis for 0/1-step index streams."""
-    import jax.numpy as jnp
-
-    from marginalign_trna_tpu.ops.bucket_scatter import (
-        GROUP, monotone_gather,
-    )
-
-    D, B, rg = 3 * GROUP, 4, 4 * GROUP
-    src = rng.random((rg, B)).astype(np.float32)
-    idx = np.zeros((D, B), np.int32)
-    for b in range(B):
-        v = int(rng.integers(0, GROUP))
-        for u in range(D):
-            idx[u, b] = v
-            if rng.random() < 0.6 and v < rg - 1:
-                v += 1
-    want = np.take_along_axis(src, idx, axis=0)
-    got = np.asarray(monotone_gather(jnp.asarray(src), jnp.asarray(idx)))
-    assert np.allclose(got, want), np.abs(got - want).max()
-
-
-def test_bucket_scatter_lanesum_matches_numpy(rng):
-    """The lane-summed scatter (caller assembly) matches a direct numpy
-    scatter-and-sum."""
-    import jax.numpy as jnp
-
-    from marginalign_trna_tpu.ops.bucket_scatter import (
-        bucket_scatter_lanesum, pad_group_rows,
-    )
-
-    D, B, C, rg = 500, 4, 3, 520
-    jmap = np.full((D, B), -1, np.int32)
-    for b in range(B):
-        v = int(rng.integers(0, 5))
-        for d in range(D):
-            if rng.random() < 0.55 and v < rg:
-                jmap[d, b] = v
-                v += 1
-    vals = rng.random((C, D, B)).astype(np.float32)
-
-    want = np.zeros((rg, C), np.float32)
-    for b in range(B):
-        for d in range(D):
-            if jmap[d, b] >= 0:
-                want[jmap[d, b], :] += vals[:, d, b]
-
-    v_p, j_p = pad_group_rows(jnp.asarray(vals), jnp.asarray(jmap))
-    got = np.asarray(bucket_scatter_lanesum(v_p, j_p, rg))
-    assert got.shape == (rg, C)
-    assert np.allclose(got, want, atol=1e-4), np.abs(got - want).max()
-
-
-def test_device_stream_derivation_matches_host(rng):
-    """band_masks_device / circ_mw_streams_device reproduce the host
-    valid/s1/s2 arrays and circ flush/lom streams exactly (they replace
-    per-bucket uploads of the same data)."""
-    import jax.numpy as jnp
-
-    from marginalign_trna_tpu.ops.band import (
-        band_masks_device, circ_flush_rows, circ_lo_mod_rows,
-        circ_mw_streams_device, circ_row_flush_rows, path_from_cigar,
-    )
-
-    reads = [rng.integers(0, 4, size=m).astype(np.int8)
-             for m in (40, 80, 64)]
-    refs = [rng.integers(0, 4, size=n).astype(np.int8)
-            for n in (52, 70, 64)]
-    paths = [None, path_from_cigar([(0, 40), (2, 10), (0, 30)]), None]
-    batch = pack_banded_batch(reads, refs, width=21, paths=paths,
-                              pad_batch_to=4)
-    valid, s1, s2 = band_masks_device(
-        jnp.asarray(batch.lo), jnp.asarray(batch.m),
-        jnp.asarray(batch.n), batch.width, batch.wp,
-    )
-    assert np.array_equal(np.asarray(valid), batch.valid)
-    assert np.array_equal(np.asarray(s1), batch.s1)
-    assert np.array_equal(np.asarray(s2), batch.s2)
-
-    d1k = -(-batch.num_steps // 8) * 8 + 16  # pad past D1
-    fr_d, frr_d, lom_d = circ_mw_streams_device(
-        jnp.asarray(batch.lo), batch.width, batch.wp, d1k
-    )
-    assert np.array_equal(np.asarray(fr_d), circ_flush_rows(batch, d1k))
-    assert np.array_equal(np.asarray(frr_d),
-                          circ_row_flush_rows(batch, d1k))
-    assert np.array_equal(np.asarray(lom_d),
-                          circ_lo_mod_rows(batch, d1k))
-
-
-def test_device_jmaps_match_host(rng):
-    """fused_flush_jmaps_device / fused_row_jmaps_device reproduce the
-    host jmap+tail builds exactly (concatenated layout)."""
-    import jax.numpy as jnp
-
-    from marginalign_trna_tpu.ops.band import path_from_cigar
-    from marginalign_trna_tpu.ops.expectations import (
-        fused_flush_jmaps, fused_flush_jmaps_device, fused_row_jmaps,
-        fused_row_jmaps_device,
-    )
-
-    reads = [rng.integers(0, 4, size=m).astype(np.int8)
-             for m in (40, 80, 64)]
-    refs = [rng.integers(0, 4, size=n).astype(np.int8)
-            for n in (52, 70, 64)]
-    paths = [None, path_from_cigar([(0, 40), (2, 10), (0, 30)]), None]
-    batch = pack_banded_batch(reads, refs, width=21, paths=paths,
-                              pad_batch_to=4)
-    d1k = -(-batch.num_steps // 8) * 8 + 16
-    off = np.array([0, 37, 100, 0], np.int64)
-
-    def _aligned(jm, jt):
-        # Device builders group-pad the jmap section (residue-collision
-        # guard; expectations._concat_group_aligned_jmaps).
-        d1 = jm.shape[0]
-        pad = (-(-d1 // 128) * 128) - d1
-        fill = np.full((pad, jm.shape[1]), -1, jm.dtype)
-        return np.concatenate([jm, fill, jt], axis=0)
-
-    jmap, jtail = fused_flush_jmaps(batch, off, batch.batch, d1k)
-    want = _aligned(jmap, jtail)
-    got = np.asarray(fused_flush_jmaps_device(
-        jnp.asarray(batch.lo), jnp.asarray(off), jnp.asarray(batch.n),
-        batch.width, batch.wp, d1k,
-    ))
-    assert np.array_equal(got, want), (got != want).sum()
-
-    jmr, jtr = fused_row_jmaps(batch, batch.batch, d1k)
-    want_r = _aligned(jmr, jtr)
-    got_r = np.asarray(fused_row_jmaps_device(
-        jnp.asarray(batch.lo), jnp.asarray(batch.m), batch.wp, d1k
-    ))
-    assert np.array_equal(got_r, want_r), (got_r != want_r).sum()

@@ -1,4 +1,6 @@
 """Banded JAX forward-backward vs the unbanded numpy log-space oracle."""
+import os
+
 import numpy as np
 import pytest
 
@@ -11,7 +13,10 @@ from marginalign_trna_tpu.ops.fb import (
 )
 from marginalign_trna_tpu.ops.oracle import forward_backward_full
 
-REF_MAPPERS = "/root/reference/src/margin/mappers"
+MODELS = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "marginalign_trna_tpu", "models",
+)
 
 
 def _random_pair(rng, m, n):
@@ -39,7 +44,7 @@ def test_logz_matches_oracle(rng, m, n):
 
 
 def test_posteriors_match_oracle(rng):
-    hmm = PairHmm.load(REF_MAPPERS + "/last_hmm_20.txt")
+    hmm = PairHmm.load(os.path.join(MODELS, "last_hmm_20.txt"))
     m, n = 14, 15
     x, y = _random_pair(rng, m, n)
     oracle = forward_backward_full(hmm, x, y)
@@ -84,7 +89,7 @@ def test_batch_consistency(rng):
 
 def test_banded_close_to_unbanded(rng):
     """A band following the true alignment path captures ~all probability."""
-    hmm = PairHmm.load(REF_MAPPERS + "/last_hmm_20.txt")
+    hmm = PairHmm.load(os.path.join(MODELS, "last_hmm_20.txt"))
     n = 60
     x = rng.integers(0, 4, size=n).astype(np.int8)
     # Read = ref with a few substitutions -> path ~ main diagonal.
@@ -122,3 +127,43 @@ def test_dp_cells_accounting(rng):
     batch = pack_banded_batch([y], [x], width=9)
     cells = batch.dp_cells()
     assert 0 < cells <= (20 + 20 + 1) * 9
+
+
+def test_long_read_posteriors_keep_f32_precision(tmp_path):
+    """At 3.5 kb, cumulative log scales reach ~|logZ| ~ 8e3, where one f32
+    ulp is ~5e-4; the posterior scale must not be formed from them.  The
+    f32 engine is compared with the same engine in float64 (x64 mode, so
+    in a subprocess)."""
+    import subprocess
+    import sys
+
+    script = r'''
+import os, sys
+sys.path.insert(0, sys.argv[1])
+import jax
+jax.config.update("jax_enable_x64", True)
+import jax.numpy as jnp
+import numpy as np
+from __graft_entry__ import _example_sequences
+from marginalign_trna_tpu.models.hmm import PairHmm
+from marginalign_trna_tpu.ops.band import pack_banded_batch
+from marginalign_trna_tpu.ops.fb import device_batch, forward_backward, make_tables
+hmm = PairHmm.load(os.path.join(sys.argv[1], "marginalign_trna_tpu",
+                                "models", "last_hmm_20.txt"))
+reads, refs, _ = _example_sequences(2, 3500, 3500, seed=1)
+dev = device_batch(pack_banded_batch(reads, refs, width=21))
+r32 = forward_backward(make_tables(hmm, jnp.float32), dev)
+r64 = forward_backward(make_tables(hmm, jnp.float64), dev)
+print(float(np.abs(np.asarray(r32.posteriors, np.float64)
+                   - np.asarray(r64.posteriors)).max()))
+print(float(np.max(np.abs(np.asarray(r32.logZ, np.float64)
+                          - np.asarray(r64.logZ)) / np.abs(np.asarray(r64.logZ)))))
+'''
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="")
+    r = subprocess.run([sys.executable, "-c", script, repo],
+                       capture_output=True, text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    post_err, logz_err = (float(v) for v in r.stdout.split())
+    assert post_err < 1e-4, post_err   # 1.6e-5 measured; 3.5e-2 before
+    assert logz_err < 1e-5, logz_err

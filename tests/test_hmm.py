@@ -1,14 +1,19 @@
 """PairHmm codec and surgery tests against the reference model files."""
+import os
+
 import numpy as np
 import pytest
 
 from marginalign_trna_tpu.models.hmm import PairHmm, SYMBOL_NUMBER
 
-REF_MAPPERS = "/root/reference/src/margin/mappers"
+MODELS = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "marginalign_trna_tpu", "models",
+)
 
 
 def test_load_reference_model():
-    hmm = PairHmm.load(REF_MAPPERS + "/last_hmm_20.txt")
+    hmm = PairHmm.load(os.path.join(MODELS, "last_hmm_20.txt"))
     assert hmm.model_type == 1
     assert hmm.transitions.shape == (5, 5)
     assert np.allclose(hmm.transitions.sum(axis=1), 1.0, atol=1e-5)
@@ -18,7 +23,7 @@ def test_load_reference_model():
 
 
 def test_write_roundtrip(tmp_path):
-    hmm = PairHmm.load(REF_MAPPERS + "/last_hmm_20.txt")
+    hmm = PairHmm.load(os.path.join(MODELS, "last_hmm_20.txt"))
     path = str(tmp_path / "m.hmm")
     hmm.write(path)
     hmm2 = PairHmm.load(path)
@@ -31,11 +36,11 @@ def test_substitution_rate_relaxation_matches_shipped_models():
     """last_hmm_20/40 are last_hmm_0 with 0.2/0.4 substitution-rate surgery
     (reference: modifyHmmEmissionsByExpectedVariationRate,
     marginAlignLib.py:258-263)."""
-    base = PairHmm.load(REF_MAPPERS + "/last_hmm_0.txt")
+    base = PairHmm.load(os.path.join(MODELS, "last_hmm_0.txt"))
     for rate, name in [(0.2, "last_hmm_20.txt"), (0.4, "last_hmm_40.txt")]:
         h = base.copy()
         h.modify_by_substitution_rate(rate)
-        shipped = PairHmm.load(REF_MAPPERS + "/" + name)
+        shipped = PairHmm.load(os.path.join(MODELS, name))
         assert np.allclose(h.emissions[0], shipped.emissions[0], atol=1e-9), name
         assert np.allclose(h.transitions, shipped.transitions)
 
@@ -64,13 +69,13 @@ def test_gc_normalisation():
 
 
 def test_substitution_matrix_rows():
-    hmm = PairHmm.load(REF_MAPPERS + "/last_hmm_20.txt")
+    hmm = PairHmm.load(os.path.join(MODELS, "last_hmm_20.txt"))
     sub = hmm.substitution_matrix()
     assert np.allclose(sub.sum(axis=1), 1.0)
 
 
 def test_match_emissions_5x5_wildcard():
-    hmm = PairHmm.load(REF_MAPPERS + "/last_hmm_20.txt")
+    hmm = PairHmm.load(os.path.join(MODELS, "last_hmm_20.txt"))
     t = hmm.match_emissions_5x5()
     e = hmm.emissions[0].reshape(4, 4)
     assert np.allclose(t[:4, :4], e)

@@ -1,4 +1,4 @@
-"""I/O substrate tests against the reference fixture files."""
+"""I/O substrate tests against the seeded fixture files."""
 import os
 
 import numpy as np
@@ -12,20 +12,22 @@ from marginalign_trna_tpu.io.vcf import vcf_read, vcf_write
 from marginalign_trna_tpu.utils.seq import encode, decode, reverse_complement
 
 
-def test_fasta_read(fixtures_dir):
+def test_fasta_read(fixtures_dir, fixture_facts):
     d = get_fasta_dictionary(os.path.join(fixtures_dir, "references.fa"))
     assert set(d) == {"DNA_CS", "M13"}
-    assert len(d["DNA_CS"]) == 3559
-    assert len(d["M13"]) == 7279
+    assert len(d["DNA_CS"]) == fixture_facts["ref_lengths"]["DNA_CS"]
+    assert len(d["M13"]) == fixture_facts["ref_lengths"]["M13"]
 
 
-def test_fastq_read(fixtures_dir):
+def test_fastq_read(fixtures_dir, fixture_facts):
+    n = fixture_facts["n_reads"]
     reads = list(fastq_read(os.path.join(fixtures_dir, "reads.fq")))
-    assert len(reads) == 31
+    assert len(reads) == n
     lengths = [len(s) for _, s, _ in reads]
-    assert min(lengths) == 294 and max(lengths) == 7214
+    assert min(lengths) == fixture_facts["min_read_len"]
+    assert max(lengths) == fixture_facts["max_read_len"]
     d = get_fastq_dictionary(os.path.join(fixtures_dir, "reads.fq"))
-    assert len(d) == 31
+    assert len(d) == n
 
 
 def test_encode_decode():
@@ -48,15 +50,19 @@ def test_cigar_roundtrip():
     assert parse_cigar("*") == []
 
 
-def test_sam_read(fixtures_dir):
+def test_sam_read(fixtures_dir, fixture_facts):
     sam = SamFile.read(os.path.join(fixtures_dir, "input.sam"))
     assert len(sam.records) == 2
     rec = sam.records[0]
-    assert rec.qname == "channel_82_read_139"
-    assert rec.rname == "DNA_CS"
-    assert rec.pos == 146  # SAM text is 1-based
+    first = fixture_facts["input_sam_first"]
+    assert rec.qname == first["qname"]
+    assert rec.rname == first["rname"]
+    assert rec.pos + 1 == first["pos1"]  # SAM text is 1-based
+    text = open(os.path.join(fixtures_dir, "input.sam")).read()
+    assert "\t%d\t" % first["pos1"] in text.splitlines()[2]
+    assert rec.cigar[0] == (5, 6) and rec.cigar[-1] == (5, 2)
     assert not rec.is_reverse
-    assert sam.reference_lengths() == {"DNA_CS": 3559, "M13": 7279}
+    assert sam.reference_lengths() == fixture_facts["ref_lengths"]
     # CIGAR-derived coordinates must be internally consistent.
     ref_span = sum(l for op, l in rec.cigar if op in (0, 2))
     assert rec.reference_end - rec.reference_start == ref_span

@@ -40,35 +40,6 @@ def test_chain_seeds_matches_python(rng):
             assert q2 > q1 and r2 > r1
 
 
-def test_tracebacks_match_python(rng):
-    """End-to-end: guide alignment with and without native tracebacks."""
-    from marginalign_trna_tpu.align.guide import GuideConfig, map_reads
-    from marginalign_trna_tpu.io.sam import SamFile
-
-    fixtures = "/root/reference/tests"
-    out_nat = "/tmp/guide_nat_test.sam"
-    out_py = "/tmp/guide_py_test.sam"
-    map_reads(fixtures + "/lessReads.fq", fixtures + "/references.fa", out_nat)
-    os.environ["MARGINALIGN_NO_NATIVE"] = "1"
-    native._lib = None
-    native._tried = False
-    try:
-        map_reads(fixtures + "/lessReads.fq", fixtures + "/references.fa",
-                  out_py)
-    finally:
-        del os.environ["MARGINALIGN_NO_NATIVE"]
-        native._tried = False
-
-    nat = SamFile.read(out_nat)
-    py = SamFile.read(out_py)
-    assert len(nat.records) == len(py.records)
-    for a, b in zip(nat.records, py.records):
-        assert a.cigar == b.cigar, a.qname
-        assert a.pos == b.pos
-    os.unlink(out_nat)
-    os.unlink(out_py)
-
-
 def test_pack_band_lane_matches_numpy(rng):
     from marginalign_trna_tpu.ops.band import pack_banded_batch
 

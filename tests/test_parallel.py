@@ -227,28 +227,15 @@ def test_two_process_distributed_em_and_caller_reduce(tmp_path):
         assert got["sam"] == want_sam, "process %d realign SAM differs" % p
 
 
-def test_runtime_helpers():
+def test_runtime_helpers(monkeypatch):
     from marginalign_trna_tpu.parallel.runtime import (
-        is_host_zero, shard_for_host, with_retries,
+        is_host_zero, local_dispatch_devices, shard_for_host,
     )
 
     assert is_host_zero()  # single-process tests
     assert shard_for_host([1, 2, 3]) == [1, 2, 3]
-
-    calls = {"n": 0}
-
-    def flaky():
-        calls["n"] += 1
-        if calls["n"] < 3:
-            raise RuntimeError("transient")
-        return "ok"
-
-    assert with_retries(flaky, attempts=4, base_delay=0.01) == "ok"
-    assert calls["n"] == 3
-
-    with pytest.raises(RuntimeError):
-        with_retries(lambda: (_ for _ in ()).throw(RuntimeError("x")),
-                     attempts=2, base_delay=0.01)
+    monkeypatch.setenv("MARGINALIGN_LOCAL_DEVICES", "3")
+    assert len(local_dispatch_devices()) == 3
 
 
 def test_multi_device_round_robin_realign_and_caller(rng, monkeypatch):

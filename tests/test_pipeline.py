@@ -1,4 +1,4 @@
-"""End-to-end marginAlign pipeline tests on the reference fixtures."""
+"""End-to-end marginAlign pipeline tests on the seeded fixtures."""
 import os
 
 import numpy as np
@@ -11,7 +11,10 @@ from marginalign_trna_tpu.io.sam import SamFile
 from marginalign_trna_tpu.models.hmm import PairHmm
 from marginalign_trna_tpu.stats.stats import ReadAlignmentStats
 
-MODEL = "/root/repo/marginalign_trna_tpu/models/last_hmm_20.txt"
+MODEL = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "marginalign_trna_tpu", "models", "last_hmm_20.txt",
+)
 
 
 @pytest.fixture(scope="module")
@@ -142,9 +145,8 @@ def test_mapper_presets_distinct_and_beat_reference_mappers(fixtures_dir,
     """The three mapper presets are behaviorally DISTINCT (different
     seeding + scoring: exact 13-mers / bwa-ont2d 8-mers + unit gaps +
     coverage floor / (15,10) minimizers + map-ont scores) and each
-    matches or beats the guide quality of the reference's own mapper
-    output on the same reads (tests/inputBigMutations{Last,Bwa,}.sam,
-    produced by real LAST / bwa / minimap2 runs)."""
+    matches the guide quality of the reads' TRUE alignments
+    (inputBigMutations.sam), which any mapper's output stands in for."""
     reads = os.path.join(fixtures_dir, "reads.fq")
     ref = os.path.join(fixtures_dir, "referencesMutated.fa")
 
@@ -171,18 +173,13 @@ def test_mapper_presets_distinct_and_beat_reference_mappers(fixtures_dir,
     assert texts["last"] != texts["minimap2"]
     assert texts["bwa"] != texts["minimap2"]
 
-    # Quality: >= the corresponding real mapper's fixture output
-    # (identity AND coverage; measured round 4: ours 0.53-0.55 identity
-    # vs reference mappers' 0.51-0.53 on these fixtures).
-    fixture_for = {
-        "last": "inputBigMutationsLast.sam",
-        "bwa": "inputBigMutationsBwa.sam",
-        "minimap2": "inputBigMutations.sam",
-    }
-    for preset, fixture in fixture_for.items():
-        n_ref, id_ref, cov_ref = mean_stats(
-            os.path.join(fixtures_dir, fixture)
-        )
+    # Quality: identity AND coverage >= the true alignments' (CPU backend:
+    # truth 0.4314 / 0.9707, presets 0.4335-0.4354 / 0.9713-0.9756; the
+    # identity counts the unaligned reference ends as deletions).
+    n_ref, id_ref, cov_ref = mean_stats(
+        os.path.join(fixtures_dir, "inputBigMutations.sam")
+    )
+    for preset in ("last", "bwa", "minimap2"):
         n_our, id_our, cov_our = ours[preset]
         assert n_our >= n_ref, (preset, n_our, n_ref)
         assert id_our >= id_ref - 0.005, (preset, id_our, id_ref)

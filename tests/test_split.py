@@ -1,4 +1,6 @@
 """Anchor splitting (reference --splitMatrixBiggerThanThis semantics)."""
+import os
+
 import numpy as np
 import pytest
 
@@ -9,7 +11,10 @@ from marginalign_trna_tpu.align.realign import (
 )
 from marginalign_trna_tpu.ops.band import path_from_cigar
 
-MODEL = "/root/reference/src/margin/mappers/last_hmm_20.txt"
+MODEL = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "marginalign_trna_tpu", "models", "last_hmm_20.txt",
+)
 
 
 def _noisy_pair(rng, n):

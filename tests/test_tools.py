@@ -50,12 +50,12 @@ def _read_bam_raw(path):
     return refs, records
 
 
-def test_bam_writer_roundtrip(fixtures_dir, tmp_path):
+def test_bam_writer_roundtrip(fixtures_dir, fixture_facts, tmp_path):
     sam_path = os.path.join(fixtures_dir, "input.sam")
     bam = str(tmp_path / "out.bam")
     sam_to_bam_file(sam_path, bam, sort=True, index=True)
     refs, records = _read_bam_raw(bam)
-    assert refs == [("DNA_CS", 3559), ("M13", 7279)]
+    assert refs == list(fixture_facts["ref_lengths"].items())
     sam = SamFile.read(sam_path)
     assert len(records) == len(sam.records)
     # Sorted by (ref, pos).
@@ -85,13 +85,15 @@ def test_substitution_matrix(fixtures_dir):
     assert xml.tag == "substitutions"
 
 
-def test_kmer_counts(fixtures_dir, tmp_path):
+def test_kmer_counts(fixtures_dir, fixture_facts, tmp_path):
     ref_k, read_k = count_kmers(
         5,
         os.path.join(fixtures_dir, "references.fa"),
         os.path.join(fixtures_dir, "lessReads.fq"),
     )
-    assert sum(ref_k.values()) == (3559 - 4) + (7279 - 4)
+    assert sum(ref_k.values()) == sum(
+        n - 4 for n in fixture_facts["ref_lengths"].values()
+    )
     out = str(tmp_path / "kmers.txt")
     write_kmer_table(ref_k, read_k, out)
     lines = open(out).read().splitlines()
@@ -111,7 +113,7 @@ def test_mutate_sequences():
     assert muts == muts2
 
 
-def test_assembly_hub(fixtures_dir, tmp_path):
+def test_assembly_hub(fixtures_dir, fixture_facts, tmp_path):
     path = create_assembly_hub(
         os.path.join(fixtures_dir, "input.sam"),
         os.path.join(fixtures_dir, "references.fa"),
@@ -129,11 +131,11 @@ def test_assembly_hub(fixtures_dir, tmp_path):
     sizes = read_2bit_names_and_sizes(
         os.path.join(ref_dir, "references.2bit")
     )
-    assert sizes == {"DNA_CS": 3559, "M13": 7279}
+    assert sizes == fixture_facts["ref_lengths"]
 
 
-def test_script_launchers_run(fixtures_dir, tmp_path):
-    env = dict(os.environ, MARGINALIGN_PLATFORM="cpu")
+def test_script_launchers_run(fixtures_dir, fixture_facts, tmp_path):
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     out_fq = str(tmp_path / "u.fq")
     r = subprocess.run(
         [sys.executable, os.path.join(REPO, "scripts", "uniquifyFastq"),
@@ -153,4 +155,5 @@ def test_script_launchers_run(fixtures_dir, tmp_path):
     )
     assert r.returncode == 0, r.stderr
     n_muts = len(open(out_muts).read().splitlines())
-    assert 700 < n_muts < 1500  # ~10% of 10.8kb
+    total = sum(fixture_facts["ref_lengths"].values())
+    assert 0.07 * total < n_muts < 0.14 * total  # ~10% of the references

@@ -1,20 +1,16 @@
-"""Device-side traceback scans vs the host/native tracebacks (exact)."""
+"""Device-side traceback scans vs plain sequential tracebacks (exact)."""
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from marginalign_trna_tpu.ops.band import pack_banded_batch
 from marginalign_trna_tpu.ops.fb import device_batch
-from marginalign_trna_tpu.ops.mea import (
-    NEG, _traceback_one, banded_mea, mea_weights,
-)
-from marginalign_trna_tpu.ops.nw import NwParams, banded_nw, traceback
+from marginalign_trna_tpu.ops.mea import NEG, banded_mea, mea_weights
+from marginalign_trna_tpu.ops.nw import banded_nw
 from marginalign_trna_tpu.ops.traceback_device import (
     mea_moves_device, nw_moves_device, ops_from_moves, pack_moves,
-    unpack_moves,
+    pull_ops, unpack_moves,
 )
-
-pytestmark = pytest.mark.fast
+from tb_reference import mea_traceback, nw_traceback
 
 
 def _mutate(rng, x, sub=0.12, ind=0.06):
@@ -48,7 +44,8 @@ def test_nw_moves_device_matches_host(rng):
         )
     )
     for b in range(5):
-        expect = traceback(ptrs, batch, b, int(fs[b]))
+        expect = nw_traceback(ptrs, batch.lo[:, b], b, int(batch.m[b]),
+                              int(batch.n[b]), int(fs[b]))
         got = ops_from_moves(mvs, b)
         assert got == expect, f"lane {b}"
 
@@ -87,6 +84,20 @@ def test_mea_moves_device_matches_host(rng):
         )
     )
     for b in range(4):
-        expect = _traceback_one(ptrs, batch, b)
+        expect = mea_traceback(ptrs, batch.lo[:, b], b, int(batch.m[b]),
+                               int(batch.n[b]))
         got = ops_from_moves(mvs, b)
         assert got == expect, f"lane {b}"
+
+
+def test_mea_moves_out_of_range_pointer():
+    """A pointer value outside {0, 1, 2} moves up (consumes the read
+    only), exactly like the sequential traceback's fall-through branch."""
+    batch = pack_banded_batch([np.zeros(3, np.int8)], [np.zeros(3, np.int8)],
+                              width=7)
+    D1, Wp, B = batch.valid.shape
+    ptrs = np.full((D1, Wp, B), 3, np.uint8)
+    got = pull_ops(pack_moves(mea_moves_device(
+        ptrs, batch.lo, batch.m, batch.n)), D1, 1)[0]
+    expect = mea_traceback(ptrs, batch.lo[:, 0], 0, 3, 3)
+    assert got == expect == [(2, 3), (1, 3)]
